@@ -1,14 +1,14 @@
 """The central matrix type: host block index + device TILE STORE.
 
-TPU-native redesign of ``dbcsr_type`` (``src/core/dbcsr_types.F:362-461``):
+Redesign of ``dbcsr_type`` (``src/core/dbcsr_types.F:362-461``):
 
 - the CSR-of-blocks index lives on the host (numpy, see ``index.py``);
 - the device data is the matrix's own **tile store** — ``[n_tiles, T, T]``
   holding the dense content of every T×T tile that overlaps a stored block,
   exactly 0 everywhere no block covers (the *padding-zero invariant*; see
-  ``store.py`` for why: element-granular device gathers are ~1000× slower
-  than tile-granular ones on TPU, so the at-rest layout must already BE the
-  layout the MXU consumes);
+  ``store.py`` for why: element-granular device gathers are far slower
+  than tile-granular ones, so the at-rest layout must already BE the
+  layout the matrix products consume);
 - the reference's element-contiguous ``data_area`` layout survives host-side
   only, as the interchange format for assembly, I/O and block access
   (``flat_host``/``with_flat``).
@@ -46,9 +46,9 @@ def default_tile() -> int:
 
 def emulate_complex(dtype) -> bool:
     """True when ``dtype`` is complex and the device backend cannot hold
-    complex arrays (e.g. restricted TPU toolchains): the matrix then stores
+    complex arrays (or when tests force it): the matrix then stores
     SPLIT re/im real tile stores and every device op runs as real
-    arithmetic — the TPU-native form of the reference's z/c type classes
+    arithmetic — this library's form of the reference's z/c type classes
     (``src/data/dbcsr.fypp:15-28``) on such backends."""
     if not np.issubdtype(np.dtype(dtype), np.complexfloating):
         return False

@@ -132,8 +132,8 @@ def apply_flat_gather(new_index, tile, src, src_flat_of_new: np.ndarray):
     This is the compatibility path for block-compacting/permuting
     transformations that cannot be expressed at tile granularity
     (sub-matrix extraction across arbitrary block subsets, tensor layout
-    refolds). It is correct everywhere but element-granular — ~0.5 GB/s on
-    TPU — so hot paths must not rely on it (see store.py).
+    refolds). It is correct everywhere but element-granular, so hot paths
+    must not rely on it (see store.py).
     """
     from .store import store_layout
 

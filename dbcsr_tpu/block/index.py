@@ -1,6 +1,6 @@
 """Host-side CSR-of-blocks index: construction, canonicalization, merging.
 
-TPU-native analog of the reference's index machinery
+Analog of the reference's index machinery
 (``src/block/dbcsr_index_operations.F:54-69``; slot layout
 ``src/core/dbcsr_types.F:497-526``). The index lives on the host as numpy
 arrays — index planning is branchy/latency-bound and belongs on CPU; only

@@ -1,10 +1,10 @@
 """Tile-store layout: the at-rest device representation of a matrix.
 
-Measured on TPU (see ARCHITECTURE.md "gather granularity"): element-level
-gathers with arbitrary indices run ~0.5 GB/s — three orders of magnitude
-below HBM bandwidth — while tile-level (whole [T,T]) and row-level (>=128
-lane) gathers run at full bandwidth. Everything the device touches per
-multiply must therefore move at tile granularity.
+Element-level gathers with arbitrary indices move one scalar per index,
+while tile-level (whole [T,T]) and row-level gathers move contiguous
+slabs at memory bandwidth (ARCHITECTURE.md "gather granularity").
+Everything the device touches per multiply therefore moves at tile
+granularity.
 
 Consequence: a matrix's device data IS its own T×T tile store — a
 ``[n_tiles, T, T]`` array holding the dense content of every tile that
@@ -23,7 +23,8 @@ Block-granular semantics on device (norms, filtering masks, row/col
 scaling) run through per-tile INDICATOR matmuls built here: all tiles in
 tile-row ``tr`` share the row→block-row indicator ``J[tr] ∈ {0,1}^{T×Amax}``
 and all tiles in tile-col ``tc`` share ``I[tc] ∈ {0,1}^{T×Bmax}``, so
-per-block sums are two small batched matmuls (MXU work, no scatters):
+per-block sums are two small batched matmuls (matrix-unit work, no
+scatters):
 ``z[t] = J[tr(t)]ᵀ (x∘x)[t] I[tc(t)]``.
 """
 from __future__ import annotations

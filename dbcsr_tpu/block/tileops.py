@@ -1,7 +1,7 @@
 """Tile-granular device operations on tile stores.
 
 Every per-multiply device operation must move data at tile (or >=128-lane
-row) granularity — element-granular gathers are ~1000× slower on TPU (see
+row) granularity — element-granular gathers are far slower (see
 ``store.py``). This module provides the shared primitives:
 
 - store alignment (union/intersection/re-keying) via tile-level ``take``;
@@ -9,8 +9,8 @@ row) granularity — element-granular gathers are ~1000× slower on TPU (see
   device by broadcasting over each tile's global coordinates;
 - the block↔tile indicator machinery: per-tile block-segment indicators
   turn block-granular semantics (per-block norms, block keep/drop masks,
-  validity masks) into small batched matmuls — MXU work instead of
-  scatters. This replaces the reference's element loops in
+  validity masks) into small batched matmuls — matrix-unit work instead
+  of scatters. This replaces the reference's element loops in
   ``dbcsr_block_operations.F`` and the norms kernels
   (``src/acc/cuda_hip/calculate_norms.cpp``).
 """
@@ -177,8 +177,8 @@ def _per_tile_block_sums(store, J_dev, I_dev):
     """z[t, a, b] = sum_{i,j} J[t,i,a] * |x[t,i,j]|^2 * I[t,j,b].
 
     HIGHEST precision: norms are true single precision like the
-    reference's (``calculate_norms.cpp``); the MXU's default bf16 pass
-    would quantize them to ~3 digits."""
+    reference's (``calculate_norms.cpp``); a default-precision pass (TF32
+    on the GPU) would quantize them to ~3 digits."""
     x2 = (store * jnp.conj(store)).real.astype(jnp.float32)
     y = jnp.einsum(
         "tia,tij->taj", J_dev, x2, precision=jax.lax.Precision.HIGHEST

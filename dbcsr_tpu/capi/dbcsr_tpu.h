@@ -1,4 +1,4 @@
-/* dbcsr_tpu C API — the TPU-native analog of the reference's C bindings:
+/* dbcsr_tpu C API — the Analog of the reference's C bindings:
  * the full `c_dbcsr_*` matrix surface (`/root/reference/src/dbcsr.h`,
  * 100 functions generated by fypp over `src/dbcsr_api_c.F`) plus the
  * `c_dbcsr_t_*` tensor surface (`src/tensors/dbcsr_tensor.h`, 54

@@ -1,6 +1,6 @@
 """Typed configuration system with environment overrides and provenance.
 
-TPU-native analog of the reference's config/flag system
+Analog of the reference's config/flag system
 (``src/core/dbcsr_config.F:100-246``): every parameter is typed, carries a
 Default/Environment/User provenance tag, and can be overridden by an
 environment variable ``DBCSR_<NAME>`` read at library init.
@@ -30,61 +30,28 @@ _PROVENANCE_USER = "U"
 class Config:
     """Global configuration (analog of ``dbcsr_config_type``).
 
-    Parameters mirror the reference's knobs where they still make sense on
-    TPU (``src/core/dbcsr_config.F:152-183``); GPU-only knobs (pinned
+    Parameters mirror the reference's knobs where they still make sense
+    here (``src/core/dbcsr_config.F:152-183``); runtime knobs (pinned
     memory, stream priorities, ...) have no equivalent because XLA owns the
     device runtime.
     """
 
     # --- multiply engine -------------------------------------------------
-    #: hardware tile edge for the packed panels (MXU native is 128)
+    #: hardware tile edge of the tile stores and stack products (untuned
+    #: for the H100, ROADMAP S2)
     tile_size: int = 128
-    #: engine selection: "auto" | "dense" | "stack" | "xla" | "band" |
-    #: "panel" (supertile A+B-caching slab-DMA kernel, mm/panel.py) |
-    #: "grouped" (A-caching manual-DMA kernel, kernels.py)
+    #: engine selection: "auto" | "dense" | "stack" | "xla" | "band" (see
+    #: ``mm.engine.select_route``)
     mm_driver: str = "auto"
-    #: panel kernel launch parameters (autotuned per workload class):
-    #: output tiles per group, VMEM cache slots per operand, tiles per
-    #: slab-DMA chunk; admission in "auto" mode requires the slab traffic
-    #: to undercut the flat kernel's 2-tiles/entry by this ratio
-    panel_c_win: int = 16
-    panel_cache: int = 48
-    panel_chunk: int = 8
-    panel_admit: float = 0.85
-    #: unroll factor of the panel kernel's per-entry dot loop (the loop is
-    #: MXU-issue bound; unrolling lets Mosaic pipeline consecutive dots)
-    panel_unroll: int = 1
-    #: k-run fusion length R (0 = off): the panel planner merges runs of
-    #: R consecutive (A, B) tile pairs into ONE long-K dot_general
-    #: (K = R*tile) over flat transposed-A / column-major-B slab layouts
-    #: — R× fewer MXU issue slots on banded/clustered patterns, where the
-    #: per-entry issue path, not HBM, is the measured bound (see
-    #: mm/panel.py "k-run fusion")
-    panel_runlen: int = 0
-    #: feed bf16 slabs to the panel kernel when matmul_precision is
-    #: "default" (same rounding-identical argument as
-    #: ``stack_bf16_inputs``): halves slab DMA traffic AND halves the
-    #: VMEM the caches occupy, at one conversion pass per operand. Off by
-    #: default pending the on-chip sweep (pre-gstart the kernel was
-    #: control-bound and bf16 measured slower; post-gstart it is closer
-    #: to the bandwidth roofline where bf16 should pay).
-    panel_bf16_inputs: bool = False
-    #: locality tile-reordering pre-pass (mm/reorder.py): "auto" tries an
-    #: RCM tile renumbering when the panel kernel is otherwise
-    #: inadmissible (plan-once executor only); "off" disables it
-    reorder: str = "auto"
     #: band driver admission (auto mode): max W_a*W_b diagonal products,
     #: and how much padded band work (W_a*W_b*Mt tile products) may exceed
-    #: the stack path's tile-triple count — batched dense matmuls run that
-    #: much faster per tile product than DMA-issue-bound stack steps
+    #: the stack path's tile-triple count (untuned for the H100)
     band_max_products: int = 128
     band_flop_factor: float = 0.75
     #: tile-level occupancy above which the dense-panel path is used
-    #: (analog of the reference's dense-path heuristic, src/mm/dbcsr_mm.F:771)
+    #: (analog of the reference's dense-path heuristic,
+    #: src/mm/dbcsr_mm.F:771; untuned for the H100)
     dense_threshold: float = 0.30
-    #: max stack entries per Pallas launch (flat int32 triples must fit in
-    #: SMEM, ~1MB; 32768 entries = 384KB)
-    max_stack_size: int = 32768
     #: use on-the-fly per-row epsilon thresholds (eps/row_count)**2 like
     #: dbcsr_mm_cannon.F:1100-1113 (else a flat eps**2 block filter)
     per_row_eps: bool = True
@@ -95,9 +62,10 @@ class Config:
     #: triple has |a|^2*|b|^2 >= (eps/row_count)^2
     #: (dbcsr_mm_csr.F:260-280, dbcsr_mm_cannon.F:1042-1113)
     filter_mode: str = "sum"
-    #: accumulate tile products in this dtype on the MXU
+    #: accumulate tile products in this dtype
     acc_dtype: str = "float32"
     #: matmul precision for f32 inputs: "default" | "high" | "highest"
+    #: (on the GPU "default" is TF32, "highest" true f32)
     matmul_precision: str = "highest"
     #: number of 2.5D C-reduction layers (3rd mesh axis), 1 = off
     num_layers_3d: int = 1
@@ -116,34 +84,18 @@ class Config:
     #: otherwise — the reference's cannon-vs-3D driver choice), "cannon",
     #: "summa"
     mm_dist_algo: str = "auto"
-    #: feed bf16 tiles to the bandwidth-bound kernels when matmul_precision
-    #: is "default": the MXU rounds f32 inputs to bf16 in that mode anyway
-    #: (block23 measures ~85% of bf16 peak), so the conversion is
-    #: rounding-identical while HALVING HBM traffic — 1.35x on the banded
-    #: class (3.57 -> 2.64 ms measured round 2). Set False to keep f32
-    #: operand traffic; no effect at high/highest precision.
-    stack_bf16_inputs: bool = True
-    #: stack entries per Pallas grid step (C runs padded to multiples of
-    #: this with zero-tile entries). E concurrent input DMAs pipeline
-    #: better on stacks with uncorrelated tile indices (36% on a synthetic
-    #: random stack) but are neutral on banded ones where consecutive-index
-    #: DMA elision already helps — autotuned per workload class.
-    stack_e_batch: int = 1
-    #: f64 compute path: "auto" (default) routes PER WORKLOAD CLASS by
-    #: the 2026-08-19 chip measurements — dense tile-complete products
-    #: keep XLA's native f64 dot (0.72 vs 0.34 TFLOP/s effective), sparse
-    #: stack products use the exact bf16 slice schemes: the fused ozaki
-    #: panel kernel when admissible on TPU (mm/ozaki_panel.py — 78.9
-    #: GFLOP/s banded vs 7.4 native), else the XLA store-sliced twin
-    #: (ops/f64_emu.py, 22.1). "ozaki" forces the slice schemes
-    #: everywhere, "native" forces XLA's multi-pass f64 dot everywhere
-    #: (IEEE NaN/Inf propagation, ~2 TFLOP/s hw ceiling on v5e).
+    #: f64 compute path: "auto" (default) and "native" use the native
+    #: f64 dot everywhere — on the H100 the FP64 tensor cores; the banded
+    #: 400,000-row f64 stack ran there in 38.8 ms, while the ozaki slice
+    #: scheme's stack product asked for 164 GiB and could not run
+    #: (PERF.md). "ozaki" forces the exact bf16 slice schemes
+    #: (ops/f64_emu.py).
     f64_method: str = "auto"
     #: mantissa slices for the ozaki paths. 0 = auto: each path's full-
     #: f64 default (dense ``ozaki_matmul``: 7 x 8-bit slices; stack
     #: ``tile_stack_matmul_ozaki``: 8 x 7-bit slices — the narrower
     #: slices let whole anti-diagonal pair groups accumulate EXACTLY in
-    #: f32, see ops/f64_emu.py). An explicit N trades accuracy for MXU
+    #: f32, see ops/f64_emu.py). An explicit N trades accuracy for matrix
     #: passes (error ~2^-bits*(N-1) relative, x condition number).
     f64_slices: int = 0
     #: use communication-optimal splitting in TAS multiplies
@@ -199,13 +151,13 @@ def config_fingerprint(cfg: Optional[Config] = None) -> str:
     """Stable fingerprint of the public config fields AND their D/E/U
     provenance, for plan/executor cache keys.
 
-    Values alone are not enough: default-provenance knobs defer to the
-    tuned table at plan time (``mm/engine.py:_panel_knobs``,
-    ``_stack_knobs``), so a config where ``panel_c_win=16`` by DEFAULT
-    can resolve a different plan than one where the user PINNED 16.
-    The ``_provenance`` dict itself must not be embedded raw — its repr
-    depends on mutation order (round-3 advisor finding) — so fields are
-    emitted in declaration order with their provenance letters."""
+    Values alone are not enough: a default-provenance ``mm_driver`` defers
+    to the tuned table at plan time (``mm/engine.py:_tuned_driver``), so
+    a config where ``mm_driver="auto"`` by DEFAULT can resolve a different
+    plan than one where the user PINNED it. The ``_provenance`` dict
+    itself must not be embedded raw — its repr depends on mutation order —
+    so fields are emitted in declaration order with their provenance
+    letters."""
     if cfg is None:
         cfg = get_config()
     return repr(

@@ -1,7 +1,7 @@
 """Library lifecycle: init / finalize / statistics.
 
 Analog of ``dbcsr_init_lib`` / ``dbcsr_finalize_lib``
-(``src/core/dbcsr_lib.F:122-396``). On TPU there is no MPI world or
+(``src/core/dbcsr_lib.F:122-396``). Here there is no MPI world or
 accelerator context to set up — JAX owns the runtime — so init reduces to:
 config load (env overrides), optional ``jax.distributed`` initialization for
 multi-host meshes, timer/stat reset, and precision defaults.

@@ -21,6 +21,7 @@ __all__ = [
     "m_energy",
     "backend_supports_complex",
     "device_memory_stats",
+    "setup_compile_cache",
 ]
 
 _PAGE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
@@ -58,43 +59,37 @@ def m_flush(stream=None) -> None:
     (stream or sys.stdout).flush()
 
 
+#: platform -> native complex support override (the CPU and GPU backends
+#: both do complex natively; an entry set to False forces the
+#: split-complex emulation, ops/complex_emu.py — tests use that)
 _COMPLEX_OK: dict = {}
 
 
 def backend_supports_complex() -> bool:
-    """Whether the default backend can do complex arithmetic (cached probe).
-
-    Stock jax-on-TPU decomposes complex64 into real ops, but restricted
-    toolchains (e.g. AOT-only compile services) may reject complex HLO
-    entirely; CPU/GPU always support it. The probe runs in a SUBPROCESS:
-    on backends that lack complex support, even a failed complex
-    ``device_put`` leaves the in-process runtime client in a broken state,
-    so it must never be attempted in the caller's process."""
-    import subprocess
-
+    """Whether the default backend does complex arithmetic natively."""
     import jax
 
-    key = jax.devices()[0].platform
-    if key not in _COMPLEX_OK:
-        if key in ("cpu", "gpu", "cuda", "rocm"):
-            _COMPLEX_OK[key] = True
-        else:
-            code = (
-                "import os, jax, jax.numpy as jnp;"
-                "jax.config.update('jax_platforms',"
-                " os.environ['DT_PROBE_PLATFORM']);"
-                "(jnp.ones((2, 2), jnp.complex64) + 1).block_until_ready()"
-            )
-            env = dict(os.environ, DT_PROBE_PLATFORM=key)
-            try:
-                r = subprocess.run(
-                    [sys.executable, "-c", code], env=env,
-                    capture_output=True, timeout=300,
-                )
-                _COMPLEX_OK[key] = r.returncode == 0
-            except Exception:
-                _COMPLEX_OK[key] = False
-    return _COMPLEX_OK[key]
+    return _COMPLEX_OK.get(jax.devices()[0].platform, True)
+
+
+CHECKOUT_DIR = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+
+
+def setup_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at
+    ``JAX_COMPILATION_CACHE_DIR`` when it is set, else at ``.jax_cache``
+    in the root of this checkout (a fixed path: the path is part of the
+    cache's key); returns the directory. Call before the first
+    compilation."""
+    import jax
+
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        CHECKOUT_DIR, ".jax_cache"
+    )
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def m_energy() -> float:
@@ -113,7 +108,7 @@ def m_energy() -> float:
 
 def device_memory_stats(device=None) -> Optional[Dict[str, int]]:
     """Device allocator statistics (bytes_in_use, peak_bytes_in_use, ...)
-    if the backend exposes them — the TPU-native view of the reference's
+    if the backend exposes them — this library's view of the reference's
     per-multiply peak-memory tracking (``dbcsr_mm_cannon.F:1723``)."""
     import jax
 

@@ -5,8 +5,8 @@ Analog of the reference's per-(m,n,k) stack statistics and flop accounting
 ``dbcsr_print_statistics`` (``src/core/dbcsr_lib.F:348``).
 
 Effective flops are counted at user-block granularity (2*m*n*k per stack
-entry); hardware flops at tile granularity — the ratio is the MXU packing
-efficiency unique to the two-level TPU design (see ARCHITECTURE.md).
+entry); hardware flops at tile granularity — the ratio is the tile packing
+efficiency of the two-level block/tile design (see ARCHITECTURE.md).
 """
 from __future__ import annotations
 
@@ -32,6 +32,11 @@ class MMStats:
     comm_msgs: Dict[Tuple[str, int], Tuple[int, float]] = field(
         default_factory=dict
     )
+    #: product route -> times the engine chose it (``mm.engine.select_route``)
+    routes: Dict[str, int] = field(default_factory=dict)
+
+    def record_route(self, kind: str) -> None:
+        self.routes[kind] = self.routes.get(kind, 0) + 1
 
     def record_stack(self, m: int, n: int, k: int, nblocks: int) -> None:
         flops = 2.0 * m * n * k * nblocks
@@ -71,15 +76,20 @@ def reset_stats() -> None:
 
 def print_statistics(out=None) -> str:
     s = _stats
-    lines = ["-" * 72, " DBCSR-TPU STATISTICS", "-" * 72]
+    lines = ["-" * 72, " DBCSR STATISTICS", "-" * 72]
     lines.append(f" multiplications          {s.num_multiplications}")
     lines.append(f" effective flops          {s.total_flops:.6E}")
     lines.append(f" hardware (tile) flops    {s.hardware_flops:.6E}")
     if s.hardware_flops > 0:
-        lines.append(f" MXU packing efficiency   {s.total_flops / s.hardware_flops:.3f}")
+        lines.append(f" tile packing efficiency   {s.total_flops / s.hardware_flops:.3f}")
     if s.max_memory_bytes:
         lines.append(
             f" max device memory        {s.max_memory_bytes / 1e9:.3f} GB"
+        )
+    if s.routes:
+        lines.append(
+            " product routes           "
+            + ", ".join(f"{k} {v}" for k, v in sorted(s.routes.items()))
         )
     lines.append(f" stacks                   {s.num_stacks}")
     if s.num_stacks:

@@ -1,6 +1,6 @@
 """Call-stack timer environment + report.
 
-TPU-native analog of the reference's timing framework
+Analog of the reference's timing framework
 (``src/core/dbcsr_timings.F:65-416``, report ``dbcsr_timings_report.F``):
 ``timeset``/``timestop`` pairs maintain a per-thread call stack with
 inclusive/exclusive times and per-routine statistics; ranges are forwarded

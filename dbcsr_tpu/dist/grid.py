@@ -1,6 +1,6 @@
 """Process grid: a 2-D jax device mesh.
 
-TPU-native analog of ``dbcsr_mp_type`` (``src/core/dbcsr_types.F:108-139``,
+Analog of ``dbcsr_mp_type`` (``src/core/dbcsr_types.F:108-139``,
 methods ``src/mpi/dbcsr_mp_methods.F``): the reference wraps an MPI
 cartesian grid with cached row/column subcommunicators; here the grid IS a
 ``jax.sharding.Mesh`` with axes ('pr', 'pc'), and the "subcommunicators"

@@ -4,7 +4,7 @@ Ops that act DIRECTLY on owner-sharded tile stores ([ndev, n_max, T, T]
 with ``NamedSharding(mesh, P(('pr','pc'),))``, see ``sharded.py``) without
 ever gathering a matrix onto one host. The reference's elementwise layer
 (``src/ops/dbcsr_operations.F:109-125``) works on each rank's local blocks
-with scalar MPI reductions at the end; the TPU-native form is the same
+with scalar MPI reductions at the end; this library's form is the same
 shape: per-device tile arithmetic inside ``jax.shard_map``, with
 ``lax.psum``/``pmax`` for the scalar reductions.
 

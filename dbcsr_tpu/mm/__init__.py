@@ -1,9 +1,14 @@
 """Multiply engine (SURVEY.md §2.3): host symbolic planning, tile-stack
-Pallas kernels, dense einsum fast path, distributed Cannon/SUMMA drivers.
+kernels, dense einsum fast path, distributed Cannon/SUMMA drivers.
 """
-from .engine import build_distributed_executor, build_multiply_executor, multiply
+from .engine import (
+    build_distributed_executor,
+    build_multiply_executor,
+    multiply,
+    select_route,
+)
 from .filtered import FilteredExecutor, build_filtered_executor
-from .kernels import tile_stack_matmul, tile_stack_matmul_pallas, tile_stack_matmul_xla
+from .kernels import tile_stack_matmul_crun, tile_stack_matmul_xla
 from .plan import mnk_statistics, symbolic_product
 from .tileplan import TileStackPlan, plan_tile_stacks_stores
 
@@ -17,7 +22,7 @@ __all__ = [
     "mnk_statistics",
     "plan_tile_stacks_stores",
     "TileStackPlan",
-    "tile_stack_matmul",
-    "tile_stack_matmul_pallas",
+    "select_route",
+    "tile_stack_matmul_crun",
     "tile_stack_matmul_xla",
 ]

@@ -2,16 +2,14 @@
 
 Banded block patterns — the linear-scaling SCF shape DBCSR exists for —
 defeat both other drivers: the dense path pays the full Mt·Kt·Nt tile
-cube, and the stack path pays per-entry DMA/control overhead (~hundreds
-of ns per 128³ tile product, measured round 1-2; the Pallas pipeline
-cannot exploit the band's A-tile reuse). The TPU-native answer for bands
-is neither: store the band as TILE DIAGONALS ``[W, Mt, T, T]`` and
-compute the product as the W_a·W_b diagonal convolution
+cube, and the stack path pays a per-entry cost on every tile triple. The
+band driver is neither: store the band as TILE DIAGONALS ``[W, Mt, T, T]``
+and compute the product as the W_a·W_b diagonal convolution
 
     C[d1+d2, m] += A[d1, m] @ B[d2, m + off_a + d1]
 
 — a statically-unrolled family of plain BATCHED matmuls over shifted
-views, which XLA pipelines at HBM bandwidth with zero per-tile overhead.
+views, which XLA hands to the GEMM library with no per-tile overhead.
 The shifted access is a static slice of a zero-padded diagonal array, so
 the whole product is one fused jitted expression.
 
@@ -21,9 +19,9 @@ speed; the auto heuristic admits the band driver only when the padded
 work stays within ``band_flop_factor`` of the stack work.
 
 Reference analog: there is none — the reference's accdrv treats banded
-stacks like any other (``dbcsr_mm_accdrv.F``); this driver exists because
-the MXU's cost model (huge dense throughput, expensive per-op control)
-differs from a GPU warp's.
+stacks like any other (``dbcsr_mm_accdrv.F``); this driver trades padded
+flops for wide batched GEMMs, which matrix units run far faster per flop
+than many small products.
 """
 from __future__ import annotations
 
@@ -82,7 +80,7 @@ def plan_band(
     ``n_stack`` (tile-triple count of the stack path) gates admission:
     the padded band work ``wa*wb*mt`` must stay within ``flop_factor``
     of it — batched dense matmuls run that much faster per tile product
-    than the stack kernel's DMA-issue-bound steps.
+    than the stack products.
     """
     mt, kt = a_grid
     kt2, nt = b_grid
@@ -141,8 +139,8 @@ def _band_product(
 ):
     """The diagonal convolution as Wa batched WIDE matmuls.
 
-    A batched [T,T]@[T,T] product starves the MXU (measured ~2 TFLOP/s:
-    no N amortization per batch element). Lifting all of B's diagonals of
+    A batched [T,T]@[T,T] product leaves the matrix unit short of work
+    (no N amortization per batch element). Lifting all of B's diagonals of
     one row into the N axis — ``B_rows[k] = [T, Wb*T]`` — turns the inner
     d2 loop into matmul WIDTH: per d1 one batched
     ``[Mt, T, T] @ [Mt, T, Wb*T]`` product whose [T, Wb, T] output slices
@@ -187,30 +185,7 @@ def band_matmul(
     precision: str = "highest",
 ) -> jax.Array:
     """Run the band product; returns C tiles in ``plan.c_unpack`` order
-    (the product-key order the engine aligns from). On TPU with f32/bf16
-    stores the Pallas sliding-window kernel runs (perfect-reuse traffic);
-    elsewhere the XLA diagonal convolution."""
-    if (
-        _HAVE_PALLAS
-        and any(d.platform == "tpu" for d in jax.devices())
-        and a_tiles.dtype in (jnp.float32, jnp.bfloat16)
-    ):
-        return band_matmul_pallas(
-            a_tiles, b_tiles, plan, tile=tile, precision=precision
-        )
-    return _band_matmul_xla(a_tiles, b_tiles, plan, tile=tile,
-                            precision=precision)
-
-
-def _band_matmul_xla(
-    a_tiles: jax.Array,
-    b_tiles: jax.Array,
-    plan: BandPlan,
-    *,
-    tile: int,
-    precision: str = "highest",
-) -> jax.Array:
-    """XLA twin of the band product (any backend/dtype)."""
+    (the product-key order the engine aligns from)."""
     from ..block.tileops import take_tiles
 
     a_band = take_tiles(a_tiles, plan.a_pack, tile).reshape(
@@ -225,193 +200,3 @@ def _band_matmul_xla(
     )
     flat = c_band.reshape(-1, tile, tile)
     return jnp.take(flat, jnp.asarray(plan.c_unpack), axis=0)
-
-
-# ---------------------------------------------------------------------------
-# Pallas band kernel: sliding-window ring over B rows (perfect reuse)
-# ---------------------------------------------------------------------------
-#
-# The XLA formulation above pays one full HBM pass per A-diagonal for the
-# partial products (W_a rounds of [Mt, T, Wb*T] traffic). The Pallas kernel
-# reaches the PERFECT-REUSE roofline instead — every A, B and C tile moves
-# exactly once:
-#
-# - grid over tile rows m; the pipeline streams A's wide row [T, Wa*T] in
-#   and C's wide row [T, Wc*T] out;
-# - B's wide rows [T, Wb*T] ride a manual DMA ring: consecutive m need
-#   overlapping row windows (m+off .. m+off+Wa-1), so each step DMAs ONE
-#   new row and reuses Wa-1 resident ones — the reuse the round-1
-#   scalar-prefetch pipeline could not express;
-# - per step, Wa statically-unrolled [T,T]@[T,Wb*T] MXU products
-#   accumulate into static column slices of the C row in VMEM.
-
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
-
-
-def _band_row_kernel(a_ref, b_hbm, out_ref, ring, sems, *, wa, wb, wc,
-                     tile, mt, precision):
-    """Per tile-row m: A's diagonal window [Wa, 1, T, T] arrives via the
-    pipeline, B's wide rows via the manual ring, and the output window is
-    DIAGONAL-major [Wc, 1, T, T] (no big transposes anywhere)."""
-    # all index arithmetic pinned i32: under jax_enable_x64 mixed-width
-    # scalar math inside kernels breaks tracing (see kernels.py `zero`)
-    m = pl.program_id(0).astype(jnp.int32)
-    ring_n = np.int32(wa + 1)
-
-    def row_dma(r):
-        r = jnp.asarray(r, jnp.int32)
-        # b_hbm is pre-padded so row indices are always in range
-        return pltpu.make_async_copy(
-            b_hbm.at[r], ring.at[jnp.remainder(r, ring_n)],
-            sems.at[jnp.remainder(r, ring_n)],
-        )
-
-    @pl.when(m == 0)
-    def _():
-        for d in range(wa):
-            row_dma(np.int32(d)).start()
-
-    # prefetch the next step's newest row before computing
-    @pl.when(m + np.int32(1) < np.int32(mt))
-    def _():
-        row_dma(m + np.int32(wa)).start()
-
-    @pl.when(m == 0)
-    def _():
-        for d in range(wa - 1):
-            row_dma(np.int32(d)).wait()
-
-    row_dma(m + np.int32(wa - 1)).wait()  # newest row of THIS step
-
-    for dc in range(wc):
-        out_ref[dc, 0] = jnp.zeros((tile, tile), dtype=out_ref.dtype)
-    for d1 in range(wa):
-        prod = jnp.dot(
-            a_ref[d1, 0],
-            ring[jnp.remainder(m + np.int32(d1), ring_n)],
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-        for d2 in range(wb):
-            dc = d1 + d2
-            out_ref[dc, 0] = out_ref[dc, 0] + prod[
-                :, d2 * tile:(d2 + 1) * tile
-            ].astype(out_ref.dtype)
-
-
-@partial(
-    jax.jit,
-    static_argnames=("wa", "wb", "mt", "tile", "prec", "interpret"),
-)
-def _band_product_pallas(
-    a_band,  # [Wa, Mt, T, T] A diagonals
-    b_rows_padded,  # [Mt + Wa - 1, T, Wb*T] B wide rows, shift-aligned
-    *,
-    wa: int,
-    wb: int,
-    mt: int,
-    tile: int,
-    prec: str,
-    interpret: bool = False,
-):
-    wc = wa + wb - 1
-    # index-map literals pinned i32 (jax_enable_x64 legalization)
-    zero = np.int32(0)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(mt,),
-        in_specs=[
-            pl.BlockSpec(
-                (wa, 1, tile, tile), lambda m: (zero, m, zero, zero)
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(
-            (wc, 1, tile, tile), lambda m: (zero, m, zero, zero)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((wa + 1, tile, wb * tile), b_rows_padded.dtype),
-            pltpu.SemaphoreType.DMA((wa + 1,)),
-        ],
-    )
-    out_dtype = (
-        jnp.float32 if a_band.dtype == jnp.bfloat16 else a_band.dtype
-    )
-    return pl.pallas_call(
-        partial(
-            _band_row_kernel, wa=wa, wb=wb, wc=wc, tile=tile, mt=mt,
-            precision=_PRECISIONS[prec],
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (wc, mt, tile, tile), out_dtype
-        ),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mt * wa * tile * tile * wb * tile,
-            bytes_accessed=(mt * (wa + wb + wc))
-            * tile * tile * a_band.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(a_band, b_rows_padded)
-
-
-def band_matmul_pallas(
-    a_tiles: jax.Array,
-    b_tiles: jax.Array,
-    plan: BandPlan,
-    *,
-    tile: int,
-    precision: str = "default",
-    interpret: bool = False,
-) -> jax.Array:
-    """Pallas band product; same contract as :func:`band_matmul`."""
-    from ..block.tileops import take_tiles
-
-    from ..core.config import get_config
-
-    wa, wb, mt, kt = plan.wa, plan.wb, plan.mt, plan.kt
-    wc = wa + wb - 1
-    a_band = take_tiles(a_tiles, plan.a_pack, tile).reshape(
-        wa, mt, tile, tile
-    )
-    b_band = take_tiles(b_tiles, plan.b_pack, tile).reshape(
-        wb, kt, tile, tile
-    )
-    b_rows = jnp.transpose(b_band, (1, 2, 0, 3)).reshape(
-        kt, tile, wb * tile
-    )
-    # bf16 inputs at default precision (the MXU computes f32 inputs in
-    # bf16 then anyway; halves pack traffic, doubles the narrow-M rate) —
-    # accumulation stays f32 in the kernel
-    if (
-        precision == "default"
-        and get_config().stack_bf16_inputs
-        and a_band.dtype == jnp.float32
-    ):
-        a_band = a_band.astype(jnp.bfloat16)
-        b_rows = b_rows.astype(jnp.bfloat16)
-    # shift-align: kernel row index r corresponds to B row r + off_a
-    # (r in [0, Mt + Wa - 1)); pad so the index range maps into the array
-    pad_lo = max(0, -plan.off_a)
-    need = mt + wa - 1
-    pad_hi = max(0, need - pad_lo - kt + max(0, plan.off_a))
-    b_pad = jnp.pad(b_rows, ((pad_lo, pad_hi), (0, 0), (0, 0)))
-    start = plan.off_a + pad_lo  # >= 0
-    b_aligned = jax.lax.dynamic_slice_in_dim(b_pad, start, need, axis=0)
-    c_band = _band_product_pallas(
-        a_band, b_aligned, wa=wa, wb=wb, mt=mt, tile=tile, prec=precision,
-        interpret=interpret,
-    )
-    # already diagonal-major [Wc, Mt, T, T]: unpack is one tile gather
-    out = jnp.take(
-        c_band.reshape(wc * mt, tile, tile), jnp.asarray(plan.c_unpack),
-        axis=0,
-    )
-    return out.astype(a_tiles.dtype)

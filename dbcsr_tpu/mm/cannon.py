@@ -1,13 +1,14 @@
 """Cannon distributed multiply over a 2-D device mesh.
 
-TPU-native redesign of ``multiply_cannon``
+Redesign of ``multiply_cannon``
 (``src/mm/dbcsr_mm_cannon.F:839-1772``): the reference runs ``nvirt_k``
 "metronome" ticks of double-buffered MPI isend/irecv ring shifts of A
 (left along grid rows) and B (up along grid columns) overlapped with local
 multiplies. Here the ticks are a ``jax.lax.fori_loop`` inside a
 ``jax.shard_map``-ped program whose ring shifts are ``lax.ppermute`` over
-the mesh axes — XLA's async collectives overlap the ICI transfer with the
-local tile-stack GEMM, which is the whole point of Cannon.
+the mesh axes — XLA's async collectives overlap the transfer (NCCL over
+NVLink on a multi-GPU host) with the local tile-stack GEMM, which is the
+whole point of Cannon.
 
 Key structural moves (see ARCHITECTURE.md):
 - Panels are **pre-shifted at pack time** — A panel (i,k) is packed straight

@@ -5,13 +5,12 @@ iterative loop: per SCF step it recomputes block norms, applies per-row
 thresholds inside the hot tick loop (``src/mm/dbcsr_mm_cannon.F:1042-1113``)
 and prunes the product to blocks with Frobenius norm >= eps
 (``multrec_filtering``, ``src/mm/dbcsr_mm_multrec.F:390``). Its motivation
-is FLOP avoidance on CPUs/GPUs; on TPU the bookkeeping would cost far more
-than the avoided MXU work (the one-shot host-planned path measured 102.5 ms
-per call pattern-static, 581 ms data-varying — vs sub-ms of actual MXU
-time), so the TPU-native design inverts it:
+is FLOP avoidance; on an accelerator driven from Python the per-call host
+bookkeeping (norms to the host, replanning, index builds) costs far more
+than the avoided matrix work, so this design inverts it:
 
 * Plan ONCE on the operand *patterns* (the symbolic SUPERSET product,
-  no norms): C's superset index, the tile/panel plans, and the
+  no norms): C's superset index, the tile plans, and the
   block<->tile indicator structure. Host work happens only when a
   pattern changes.
 * Per call, ONE jitted device step: superset product (the same tuned

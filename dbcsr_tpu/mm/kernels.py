@@ -1,47 +1,48 @@
-"""Tile-stack batched GEMM kernels — the TPU-native libsmm_acc.
+"""Tile-stack batched GEMM kernels — this library's libsmm_acc.
 
 The reference JIT-compiles per-(m,n,k) CUDA kernels that process "parameter
 stacks" of small GEMMs with atomicAdd into C
 (``src/acc/libsmm_acc/libsmm_acc.cpp``, kernels
 ``smm_acc_dnt_{tiny,small,medium,largeDB*}.h``). Here the stack entries are
-(c_tile, a_tile, b_tile) triples over T×T hardware tiles (T=128 → every
-matmul is MXU-native), the stack is **sorted by output tile** on the host,
-and accumulation uses Pallas output-window revisiting — deterministic, no
-atomics (SURVEY.md §7 "scatter-add contention").
+(c_tile, a_tile, b_tile) triples over T×T hardware tiles, the stack is
+**sorted by output tile** on the host, and every C tile is accumulated by
+one owner — deterministic, no atomics (SURVEY.md §7 "scatter-add
+contention").
 
 Two implementations with identical semantics:
-- ``tile_stack_matmul_pallas``: scalar-prefetch gather GEMM, one grid step
-  per stack entry, first-visit zeroing of the output window, Pallas's
-  pipeline double-buffers the tile DMAs under the MXU (the role of the
-  reference's double-buffered largeDB kernels). The stack rides in SMEM as
-  a FLAT int32 array (a [S,3] shape would be lane-padded to [S,128] and
-  blow the ~1MB SMEM budget), and launches are chunked at output-tile
-  boundaries (``max_chunk`` entries) so arbitrarily large stacks fit.
 - ``tile_stack_matmul_xla``: gather → batched matmul → segment-sum. Works
-  on any backend (CPU tests, f64/complex dtypes).
+  on any backend and dtype; it is the reference every kernel is checked
+  against.
+- ``tile_stack_matmul_crun``: the "C-run" kernel, Pallas through Triton.
+  One program per (C tile, BM×BN sub-block) walks that tile's sorted run
+  of (A, B) pairs, loops along K inside the program, accumulates in f32
+  registers and writes its C sub-block once. The XLA form materializes
+  the gathered A and B stacks and the per-entry products in device
+  memory; this kernel reads each operand slab straight from the tile
+  stores and never writes an intermediate.
 """
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-try:  # Pallas TPU lowering is unavailable on pure-CPU builds
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 __all__ = [
-    "tile_stack_matmul",
-    "tile_stack_matmul_pallas",
+    "crun_supported",
+    "run_pointers",
+    "tile_stack_matmul_crun",
     "tile_stack_matmul_xla",
 ]
+
+_PRECISIONS = {
+    "default": jax.lax.Precision.DEFAULT,
+    "high": jax.lax.Precision.HIGH,
+    "highest": jax.lax.Precision.HIGHEST,
+}
 
 
 @partial(jax.jit, static_argnames=("n_c_tiles", "acc_dtype", "precision"))
@@ -63,539 +64,133 @@ def tile_stack_matmul_xla(
         gb,
         dimension_numbers=(((2,), (1,)), ((0,), (0,))),
         preferred_element_type=acc,
-        precision={
-            "default": jax.lax.Precision.DEFAULT,
-            "high": jax.lax.Precision.HIGH,
-            "highest": jax.lax.Precision.HIGHEST,
-        }[precision],
+        precision=_PRECISIONS[precision],
     )
     out = jax.ops.segment_sum(prods, stack[:, 0], num_segments=n_c_tiles + 1)
     return out[:n_c_tiles].astype(a_tiles.dtype)
 
 
-def _stack_kernel(stack_ref, *refs, precision, e_batch):
-    """``e_batch`` stack entries per grid step (all sharing one C tile —
-    the host pads each C run to a multiple of e_batch with zero-tile
-    entries): E concurrent input DMAs pipeline far better than one, and the
-    output window is revisited while consecutive steps share a C tile
-    (host-sorted), so accumulation stays in VMEM and each C tile is written
-    back exactly once."""
-    out_ref = refs[-1]
-    i = pl.program_id(0)
-    stride = 3 * e_batch
-    c_here = stack_ref[stride * i]
-    c_prev = stack_ref[stride * jnp.maximum(i, 1) - stride]
-    first = jnp.logical_or(i == 0, c_here != c_prev)
+def crun_supported(dtype, tile: int, precision: str) -> bool:
+    """Whether the C-run kernel can take tiles of this dtype and edge at
+    this matmul precision.
 
-    prod = jnp.dot(
-        refs[0][0], refs[1][0],
-        preferred_element_type=jnp.float32,
-        precision=precision,
+    Triton wants power-of-two blocks and a dot whose every dimension is at
+    least 16; its dot accumulates in f32, so f64 and complex stay on XLA.
+    The kernel's dot is IEEE f32 at "highest" and TF32 at "default";
+    "high" has no such match and stays on XLA."""
+    return (
+        jnp.dtype(dtype) in (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16))
+        and tile >= 16
+        and tile & (tile - 1) == 0
+        and precision in CRUN_LAUNCH
     )
-    for e in range(1, e_batch):
-        prod = prod + jnp.dot(
-            refs[2 * e][0], refs[2 * e + 1][0],
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-
-    @pl.when(first)
-    def _():
-        out_ref[0] = prod.astype(out_ref.dtype)
-
-    @pl.when(jnp.logical_not(first))
-    def _():
-        out_ref[0] = out_ref[0] + prod.astype(out_ref.dtype)
 
 
-_PRECISIONS = {
-    "default": jax.lax.Precision.DEFAULT,
-    "high": jax.lax.Precision.HIGH,
-    "highest": jax.lax.Precision.HIGHEST,
+def run_pointers(c_col: np.ndarray, n_c_tiles: int) -> np.ndarray:
+    """``run_ptr[n_c+1]``: the c-sorted stack's entries for C tile ``c`` are
+    ``run_ptr[c]:run_ptr[c+1]`` (an empty run is a zero tile)."""
+    return np.searchsorted(
+        np.asarray(c_col), np.arange(n_c_tiles + 1), side="left"
+    ).astype(np.int32)
+
+
+def _crun_kernel(run_ref, a_idx_ref, b_idx_ref, a_ref, b_ref, out_ref, *,
+                 bm, bn, bk, tile, precision):
+    c = pl.program_id(0)
+    i = pl.program_id(1)
+    j = pl.program_id(2)
+    lo = run_ref[c]
+    hi = run_ref[c + 1]
+    rows = pl.ds(pl.multiple_of(i * bm, bm), bm)
+    cols = pl.ds(pl.multiple_of(j * bn, bn), bn)
+
+    def entry(e, acc):
+        ai = a_idx_ref[e]
+        bi = b_idx_ref[e]
+        for k0 in range(0, tile, bk):
+            a = a_ref[ai, rows, pl.ds(k0, bk)]
+            b = b_ref[bi, pl.ds(k0, bk), cols]
+            acc += jax.lax.dot_general(
+                a, b, (((1,), (0,)), ((), ())),
+                precision=precision, preferred_element_type=jnp.float32,
+            )
+        return acc
+
+    acc = jax.lax.fori_loop(lo, hi, entry, jnp.zeros((bm, bn), jnp.float32))
+    out_ref[...] = acc.astype(out_ref.dtype)
+
+
+#: launch shape of the C-run kernel per dot precision: output sub-block,
+#: K step, warps and pipeline stages. Swept on an H100 (700 W) over six
+#: shapes on the banded and mixed stacks: true-f32 dots run on the FMA
+#: units and prefer the smaller sub-block, TF32/bf16 tensor-core dots the
+#: taller one (PERF.md, "C-run kernel").
+CRUN_LAUNCH = {
+    "highest": {"bm": 64, "bn": 64, "bk": 32, "num_warps": 4, "num_stages": 3},
+    "default": {"bm": 128, "bn": 64, "bk": 32, "num_warps": 4, "num_stages": 3},
 }
 
 
 @partial(
     jax.jit,
     static_argnames=(
-        "n_c", "tile", "interpret", "precision", "out_dtype", "e_batch"
+        "n_c_tiles", "precision", "out_dtype", "interpret", "bm", "bn", "bk",
+        "num_warps", "num_stages",
     ),
 )
-def _pallas_launch(
-    a_tiles, b_tiles, flat_stack, *, n_c: int, tile: int, interpret: bool,
-    precision: str = "highest", out_dtype=None, e_batch: int = 1,
-):
-    out_dtype = out_dtype or a_tiles.dtype
-    stride = 3 * e_batch
-    s = flat_stack.shape[0] // stride
-
-    # index maps must return a uniform int type: under jax_enable_x64 the
-    # literal 0s would be i64 next to the i32 SMEM load, and Mosaic fails
-    # to legalize the mixed-type transform function
-    zero = np.int32(0)
-
-    def mk_spec(off):
-        return pl.BlockSpec(
-            (1, tile, tile),
-            lambda i, st, off=off: (st[stride * i + off], zero, zero),
-        )
-
-    in_specs = []
-    for e in range(e_batch):
-        in_specs.append(mk_spec(3 * e + 1))
-        in_specs.append(mk_spec(3 * e + 2))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(s,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (1, tile, tile), lambda i, st: (st[stride * i], zero, zero)
-        ),
-    )
-    out = pl.pallas_call(
-        partial(
-            _stack_kernel, precision=_PRECISIONS[precision], e_batch=e_batch
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_c + 1, tile, tile), out_dtype),
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * s * e_batch * tile * tile * tile,
-            bytes_accessed=(2 * s * e_batch + n_c)
-            * tile * tile * a_tiles.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(flat_stack, *([a_tiles, b_tiles] * e_batch))
-    return out
-
-
-def _bucket(n: int) -> int:
-    m = 16
-    while m < n:
-        m <<= 1
-    return m
-
-
-def tile_stack_matmul_pallas(
-    a_tiles: jax.Array,
-    b_tiles: jax.Array,
-    stack_np: np.ndarray,  # host-side int32 [S, 3], sorted by c
-    *,
-    n_c_tiles: int,
-    max_chunk: int = 32768,
-    interpret: bool = False,
-    precision: str = "highest",
-    out_dtype=None,
-    e_batch: Optional[int] = None,
-) -> jax.Array:
-    """Pallas TPU stack processor (f32/bf16), chunked at c boundaries.
-
-    ``out_dtype`` decouples the accumulation/output dtype from the inputs:
-    feeding bf16 tiles with ``out_dtype=float32`` halves the HBM traffic
-    this bandwidth-bound kernel pays per stack entry while keeping f32
-    accumulation (the MXU computes bf16×bf16→f32 natively).
-
-    Chunk boundaries never split one output tile's run (every C tile is
-    finalized within a single launch), so launch results are disjoint,
-    consecutive c-slot ranges that concatenate into the full tile store.
-    Padding entries inside a launch compute a (real) product into a local
-    trash slot that is sliced off.
-    """
+def _crun_launch(a_tiles, b_tiles, run_ptr, a_idx, b_idx, *, n_c_tiles,
+                 precision, out_dtype, interpret, bm, bn, bk, num_warps,
+                 num_stages):
     tile = a_tiles.shape[1]
-    s_total = len(stack_np)
-    out_dtype = out_dtype or a_tiles.dtype
-    if s_total == 0:
-        return jnp.zeros((n_c_tiles, tile, tile), dtype=out_dtype)
-
-    if e_batch is None:
-        from ..core.config import get_config
-
-        e_batch = get_config().stack_e_batch
-    e_batch = max(int(e_batch), 1)
-    if e_batch > 1:
-        # pad every C run to a multiple of e_batch with zero-tile entries
-        # (the appended all-zero tile: contributes nothing); padding of
-        # consecutive identical indices costs ~no DMA (pipeline elision)
-        za, zb = a_tiles.shape[0], b_tiles.shape[0]
-        c_col0 = stack_np[:, 0]
-        run_starts = np.flatnonzero(
-            np.concatenate([[True], c_col0[1:] != c_col0[:-1]])
-        )
-        run_lens = np.diff(np.concatenate([run_starts, [s_total]]))
-        pads = (-run_lens) % e_batch
-        total2 = int(run_lens.sum() + pads.sum())
-        new = np.empty((total2, 3), dtype=np.int32)
-        pos = 0
-        for rs, rl, pd in zip(run_starts, run_lens, pads):
-            new[pos:pos + rl] = stack_np[rs:rs + rl]
-            if pd:
-                new[pos + rl:pos + rl + pd] = (int(c_col0[rs]), za, zb)
-            pos += rl + pd
-        stack_np = new
-        a_tiles = jnp.concatenate(
-            [a_tiles, jnp.zeros((1, tile, tile), a_tiles.dtype)]
-        )
-        b_tiles = jnp.concatenate(
-            [b_tiles, jnp.zeros((1, tile, tile), b_tiles.dtype)]
-        )
-        s_total = total2
-
-    c_col = stack_np[:, 0]
-    outs = []
-    start = 0
-    while start < s_total:
-        end = min(start + max(max_chunk // e_batch, 1) * e_batch, s_total)
-        if end < s_total:
-            # retreat to the start of the c-run that straddles the cut
-            # (runs are multiples of e_batch, so groups stay intact)
-            boundary = int(np.searchsorted(c_col, c_col[end], side="left"))
-            if boundary <= start:
-                raise ValueError(
-                    "a single output tile has more contributions than "
-                    f"max_chunk={max_chunk}; raise max_stack_size"
-                )
-            end = boundary
-        c_lo = int(c_col[start])
-        c_hi = int(c_col[end - 1]) + 1
-        n_c_local = c_hi - c_lo
-        n_entries = end - start
-        length = _bucket(max(n_entries // e_batch, 1)) * e_batch
-        chunk = np.empty((length, 3), dtype=np.int32)
-        chunk[:n_entries] = stack_np[start:end]
-        chunk[:n_entries, 0] -= c_lo
-        chunk[n_entries:] = (n_c_local, 0, 0)  # trash groups
-        out = _pallas_launch(
-            a_tiles,
-            b_tiles,
-            jnp.asarray(chunk.reshape(-1)),
-            n_c=n_c_local,
-            tile=tile,
-            interpret=interpret,
-            precision=precision,
-            out_dtype=out_dtype,
-            e_batch=e_batch,
-        )
-        outs.append(out[:n_c_local])
-        start = end
-    full = outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=0)
-    # every c slot in [0, n_c_tiles) appears in the stack by construction
-    assert full.shape[0] == n_c_tiles, (full.shape, n_c_tiles)
-    return full
-
-
-def tile_stack_matmul(
-    a_tiles: jax.Array,
-    b_tiles: jax.Array,
-    stack_np: np.ndarray,
-    *,
-    n_c_tiles: int,
-    acc_dtype=jnp.float32,
-    prefer_pallas: bool = True,
-    max_chunk: int = 32768,
-    precision: str = "highest",
-) -> jax.Array:
-    """Dispatch: Pallas on TPU for f32/bf16, XLA everywhere else."""
-    on_tpu = any(d.platform == "tpu" for d in jax.devices())
-    if (
-        prefer_pallas
-        and _HAVE_PALLAS
-        and on_tpu
-        and a_tiles.dtype in (jnp.float32, jnp.bfloat16)
-    ):
-        return tile_stack_matmul_pallas(
-            a_tiles, b_tiles, stack_np, n_c_tiles=n_c_tiles,
-            max_chunk=max_chunk, precision=precision,
-        )
-    return tile_stack_matmul_xla(
-        a_tiles,
-        b_tiles,
-        jnp.asarray(stack_np),
-        n_c_tiles=n_c_tiles,
-        acc_dtype=acc_dtype,
+    bm, bn, bk = min(bm, tile), min(bn, tile), min(bk, tile)
+    kernel = partial(
+        _crun_kernel, bm=bm, bn=bn, bk=bk, tile=tile,
+        precision=_PRECISIONS[precision],
     )
-
-
-# ---------------------------------------------------------------------------
-# Grouped A-caching stack kernel (manual double-buffered DMA)
-# ---------------------------------------------------------------------------
-#
-# The flat kernel above pays full HBM traffic for every stack entry (2 tiles
-# per entry): the Pallas pipeline cannot elide DMAs for repeated tile
-# indices under scalar-prefetch index maps (measured round 1 — see
-# ARCHITECTURE.md "Stack-kernel roofline"). This kernel recovers the A-side
-# reuse factor explicitly, the way the reference's double-buffered largeDB
-# kernels stage operand slabs in shared memory
-# (``src/acc/libsmm_acc/kernels/smm_acc_dnt_largeDB1.h``):
-#
-# - the host groups runs of up to ``group`` consecutive output tiles whose
-#   union of A tiles fits a ``cache``-slot VMEM panel;
-# - per group, each distinct A tile is DMA'd HBM->VMEM exactly ONCE
-#   (A traffic drops by the in-group reuse factor);
-# - B tiles stream through a ``ring``-deep manual ring buffer (DMAs issued
-#   ``ring`` entries ahead — the depth hides both issue latency and HBM
-#   latency under the MXU);
-# - the group's C tiles accumulate in the pipelined output window
-#   ([group, T, T] per grid step, written back once).
-#
-# Entries are packed one int32 each: (out_local | a_cache_slot | b_tile).
-
-# int32 entry packing: [out_local:3][a_cache_slot:8][b_tile:20] (the top
-# bit stays clear -> no sign-extension surprises in SMEM scalar reads)
-_GROUP_MAX = 8     # out_local < 8
-_CACHE_MAX = 256   # a cache slot < 256
-_B_BITS = 20       # b tile index < 2^20 (1M tiles ~ 68 GB of f32 tiles)
-
-
-def _plan_groups(
-    stack_np: np.ndarray, n_c_tiles: int, group: int, cache: int
-):
-    """Host grouping pass: split the c-sorted stack into groups of up to
-    ``group`` output rows whose distinct A tiles fit the ``cache``-slot
-    panel. A c-run larger than one group's budget is split across groups
-    (its partial sums are segment-summed on device afterwards).
-
-    Returns (ebounds, abounds, aload, packed_entries, seg, n_groups) where
-    ``seg[n_groups*group]`` maps each padded output row to its c slot
-    (n_c_tiles for padding rows)."""
-    S = len(stack_np)
-    ebounds = [0]
-    abounds = [0]
-    aload: list = []
-    seg: list = []
-    e_packed = np.empty(S, dtype=np.int32)
-    cache_map: dict = {}
-    locals_used = 0
-    cur_c = -1
-    cur_local = -1
-    st = stack_np
-
-    def flush(pos):
-        nonlocal cache_map, locals_used, cur_c, cur_local
-        aload.extend(cache_map.keys())
-        abounds.append(len(aload))
-        ebounds.append(pos)
-        seg.extend([n_c_tiles] * (group - locals_used))  # padding rows
-        cache_map = {}
-        locals_used = 0
-        cur_c = -1
-        cur_local = -1
-
-    for pos in range(S):
-        c = int(st[pos, 0])
-        aa = int(st[pos, 1])
-        bb = int(st[pos, 2])
-        need_local = c != cur_c
-        new_a = aa not in cache_map
-        if (need_local and locals_used == group) or (
-            new_a and len(cache_map) == cache
-        ):
-            flush(pos)
-            need_local = True
-            new_a = True
-        if new_a:
-            cache_map[aa] = len(cache_map)
-        if need_local:
-            cur_local = locals_used
-            locals_used += 1
-            seg.append(c)
-            cur_c = c
-        e_packed[pos] = np.int32(
-            (cur_local << (_B_BITS + 8)) | (cache_map[aa] << _B_BITS) | bb
-        )
-    if locals_used or cache_map:
-        flush(S)
-
-    n_groups = len(ebounds) - 1
-    return (
-        np.asarray(ebounds, dtype=np.int32),
-        np.asarray(abounds, dtype=np.int32),
-        np.asarray(aload, dtype=np.int32),
-        e_packed,
-        np.asarray(seg, dtype=np.int32),
-        n_groups,
-    )
-
-
-def _grouped_kernel(
-    # scalar prefetch
-    ebounds_ref, abounds_ref, aload_ref, entries_ref,
-    # tensor inputs (stay in HBM/ANY)
-    a_hbm, b_hbm,
-    # pipelined output window [group, T, T]
-    out_ref,
-    # scratch
-    a_cache, b_ring, a_sems, b_sems,
-    *, precision, ring: int, cache: int,
-):
-    # all index arithmetic pinned i32: mixed-width scalar math inside
-    # kernels breaks tracing under jax_enable_x64 (see `zero` above)
-    i32 = jnp.int32
-    g = pl.program_id(0).astype(i32)
-    ring_c = np.int32(ring)
-    bmask = np.int32((1 << _B_BITS) - 1)
-    one = np.int32(1)
-
-    out_ref[...] = jnp.zeros_like(out_ref)
-
-    a0 = abounds_ref[g].astype(i32)
-    na = abounds_ref[g + one].astype(i32) - a0
-
-    def start_a(i, _):
-        i = i.astype(i32)
-        pltpu.make_async_copy(
-            a_hbm.at[aload_ref[a0 + i]], a_cache.at[i], a_sems.at[i]
-        ).start()
-        return 0
-
-    jax.lax.fori_loop(np.int32(0), na, start_a, 0)
-
-    e0 = ebounds_ref[g].astype(i32)
-    ne = ebounds_ref[g + one].astype(i32) - e0
-
-    def b_dma(j):
-        j = jnp.asarray(j, i32)
-        return pltpu.make_async_copy(
-            b_hbm.at[jnp.bitwise_and(entries_ref[e0 + j].astype(i32), bmask)],
-            b_ring.at[jnp.remainder(j, ring_c)],
-            b_sems.at[jnp.remainder(j, ring_c)],
-        )
-
-    def warm(j, _):
-        b_dma(j).start()
-        return 0
-
-    jax.lax.fori_loop(np.int32(0), jnp.minimum(ne, ring_c), warm, 0)
-
-    def wait_a(i, _):
-        i = i.astype(i32)
-        pltpu.make_async_copy(
-            a_hbm.at[aload_ref[a0 + i]], a_cache.at[i], a_sems.at[i]
-        ).wait()
-        return 0
-
-    jax.lax.fori_loop(np.int32(0), na, wait_a, 0)
-
-    def body(j, _):
-        j = j.astype(i32)
-        packed = entries_ref[e0 + j].astype(i32)
-        b_dma(j).wait()
-        ac = jnp.bitwise_and(
-            jax.lax.shift_right_logical(packed, np.int32(_B_BITS)),
-            np.int32(0xFF),
-        )
-        ol = jax.lax.shift_right_logical(packed, np.int32(_B_BITS + 8))
-        prod = jnp.dot(
-            a_cache[ac],
-            b_ring[jnp.remainder(j, ring_c)],
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-
-        @pl.when(j + ring_c < ne)
-        def _():
-            b_dma(j + ring_c).start()
-
-        out_ref[pl.ds(ol, 1)] = out_ref[pl.ds(ol, 1)] + prod.astype(
-            out_ref.dtype
-        )[None]
-        return 0
-
-    jax.lax.fori_loop(np.int32(0), ne, body, 0)
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "n_groups", "group", "cache", "ring", "tile", "interpret",
-        "precision", "out_dtype",
-    ),
-)
-def _grouped_launch(
-    a_tiles, b_tiles, ebounds, abounds, aload, entries, *,
-    n_groups: int, group: int, cache: int, ring: int, tile: int,
-    interpret: bool, precision: str, out_dtype,
-):
-    # index-map literals pinned i32 (jax_enable_x64 legalization, see the
-    # `zero` note above)
-    zero = np.int32(0)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(n_groups,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec(
-            (group, tile, tile), lambda g, *refs: (g, zero, zero)
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((cache, tile, tile), a_tiles.dtype),
-            pltpu.VMEM((ring, tile, tile), b_tiles.dtype),
-            pltpu.SemaphoreType.DMA((cache,)),
-            pltpu.SemaphoreType.DMA((ring,)),
-        ],
-    )
+    s = a_idx.shape[0]
     return pl.pallas_call(
-        partial(
-            _grouped_kernel,
-            precision=_PRECISIONS[precision],
-            ring=ring,
-            cache=cache,
-        ),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (n_groups * group, tile, tile), out_dtype
+        kernel,
+        grid=(n_c_tiles, tile // bm, tile // bn),
+        out_specs=pl.BlockSpec((None, bm, bn), lambda c, i, j: (c, i, j)),
+        out_shape=jax.ShapeDtypeStruct((n_c_tiles, tile, tile), out_dtype),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages
         ),
         interpret=interpret,
         cost_estimate=pl.CostEstimate(
-            flops=2 * int(entries.shape[0]) * tile * tile * tile,
-            bytes_accessed=(len(aload) + entries.shape[0] + n_groups * group)
-            * tile * tile * a_tiles.dtype.itemsize,
+            flops=2 * s * tile**3,
+            bytes_accessed=(2 * s + n_c_tiles) * tile * tile
+            * a_tiles.dtype.itemsize,
             transcendentals=0,
         ),
-    )(ebounds, abounds, aload, entries, a_tiles, b_tiles)
+        name="crun_stack_matmul",
+    )(run_ptr, a_idx, b_idx, a_tiles, b_tiles)
 
 
-def tile_stack_matmul_grouped(
+def tile_stack_matmul_crun(
     a_tiles: jax.Array,
     b_tiles: jax.Array,
-    stack_np: np.ndarray,  # host int32 [S, 3] sorted by c
+    stack_np: np.ndarray,  # host int32 [S, 3], sorted by c
     *,
     n_c_tiles: int,
-    group: int = 8,
-    cache: int = 128,
-    ring: int = 8,
-    interpret: bool = False,
     precision: str = "highest",
     out_dtype=None,
+    interpret: bool = False,
 ) -> jax.Array:
-    """A-caching grouped stack processor (see module comment above).
-
-    Returns the [n_c_tiles, T, T] output store (group-padded layout is
-    gathered back to consecutive c slots on device)."""
+    """C-run stack product (module docstring); same contract as
+    :func:`tile_stack_matmul_xla`, launched with the precision's
+    ``CRUN_LAUNCH`` shape."""
     tile = a_tiles.shape[1]
     out_dtype = out_dtype or a_tiles.dtype
-    if len(stack_np) == 0:
+    if len(stack_np) == 0 or n_c_tiles == 0:
         return jnp.zeros((n_c_tiles, tile, tile), dtype=out_dtype)
-    if b_tiles.shape[0] >= (1 << _B_BITS) or group > _GROUP_MAX or (
-        cache > _CACHE_MAX
-    ):
-        raise ValueError("grouped kernel limits exceeded")
-    ebounds, abounds, aload, entries, seg, n_groups = _plan_groups(
-        stack_np, n_c_tiles, group, cache
-    )
-    out = _grouped_launch(
+    stack_np = np.asarray(stack_np, dtype=np.int32)
+    return _crun_launch(
         a_tiles, b_tiles,
-        jnp.asarray(ebounds), jnp.asarray(abounds), jnp.asarray(aload),
-        jnp.asarray(entries),
-        n_groups=n_groups, group=group, cache=cache, ring=ring, tile=tile,
-        interpret=interpret, precision=precision, out_dtype=out_dtype,
+        jnp.asarray(run_pointers(stack_np[:, 0], n_c_tiles)),
+        jnp.asarray(stack_np[:, 1]), jnp.asarray(stack_np[:, 2]),
+        n_c_tiles=n_c_tiles, precision=precision,
+        out_dtype=jnp.dtype(out_dtype), interpret=interpret,
+        **CRUN_LAUNCH[precision],
     )
-    # combine split c-runs (tile-granular segment sum; a plain gather when
-    # every c slot was produced exactly once)
-    if len(seg) == n_c_tiles * 1 and np.array_equal(seg, np.arange(n_c_tiles)):
-        return out
-    full = jax.ops.segment_sum(
-        out, jnp.asarray(seg), num_segments=n_c_tiles + 1
-    )
-    return full[:n_c_tiles]

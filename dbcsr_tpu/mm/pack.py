@@ -130,7 +130,7 @@ _I32_OOB = np.iinfo(np.int32).max
 def inverse_map(dest: np.ndarray, total: int) -> np.ndarray:
     """Invert a scatter map into a gather map.
 
-    TPU scatters with arbitrary indices serialize badly; gathers are fast.
+    Scatters with arbitrary indices serialize badly; gathers are fast.
     Every pack therefore runs as ``data.at[inv].get(mode='fill')`` where
     ``inv[pos]`` is the source element of panel position ``pos`` (holes get
     an out-of-range marker that gathers as 0).

@@ -1,6 +1,6 @@
 """Host-side symbolic multiply planning.
 
-TPU-native replacement for the reference's hash-table stack builder
+Replacement for the reference's hash-table stack builder
 (``dbcsr_mm_csr_multiply_low``, ``src/mm/dbcsr_mm_csr.F:178-360``) and the
 multrec decomposition: instead of discovering C blocks block-by-block at run
 time, the whole symbolic product C-pattern, the epsilon filtering decision

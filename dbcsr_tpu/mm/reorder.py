@@ -1,19 +1,15 @@
-"""Locality-aware tile reordering for the multiply planners.
+"""Locality-aware block and tile renumbering.
 
 The reference serves linear-scaling SCF patterns whose blocks cluster
 around a (possibly hidden) 1-D locality axis; its dense-limit path
-(``dbcsr_may_be_dense``/``make_dense``, ``/root/reference/src/mm/
-dbcsr_mm.F:771-810``) exploits such structure only when the numbering
-already exposes it. Here the TPU-native panel kernel (``mm/panel.py``)
-needs *contiguous slot spans* per group of consecutive C tiles — which a
-clustered-but-scrambled numbering destroys. This module recovers the
-hidden axis: a reverse-Cuthill-McKee bandwidth-reduction pass over the
-**bipartite union tile graph** (m-, k- and n-tile nodes; edges = A and B
-tiles) renumbers all three tile dimensions so coupled tiles get nearby
-ids. The permutation acts at the TILE level, is invisible to the user's
-block index, and in the plan-once executor it folds into the existing
-store gather maps — the only runtime cost is one slot-gather per operand
-store (already present for transposed operands).
+(``dbcsr_may_be_dense``/``make_dense``, ``src/mm/dbcsr_mm.F:771-810``)
+exploits such structure only when the numbering already exposes it. A
+clustered-but-scrambled numbering spreads every block row over many
+tiles. This module recovers the hidden axis: a reverse-Cuthill-McKee
+bandwidth-reduction pass over the **bipartite union graph** (m-, k- and
+n- nodes; edges = A and B entries) renumbers all three dimensions so
+coupled rows get nearby ids. Users apply it once, at construction, with
+:func:`locality_block_permutation` and :func:`permute_blocks`.
 """
 from __future__ import annotations
 
@@ -70,14 +66,13 @@ def locality_block_permutation(a_index, b_index=None):
     The tile store packs ~``T/avg_block`` CONSECUTIVE block rows per
     hardware tile, so locality must exist in the BLOCK numbering before
     the tile layout is built — a clustered-but-scrambled block numbering
-    destroys tile packing density (measured 16x tile blow-up on the
-    clustered bench config) and no tile-level pass can recover it. This
-    is the TPU-native form of the reference's requirement that callers
+    destroys tile packing density and no tile-level pass can recover it.
+    This is this library's form of the reference's requirement that callers
     present a dense-friendly ordering for its dense-limit path
-    (``/root/reference/src/mm/dbcsr_mm.F:771-810``): compute the hidden
-    locality axis once with RCM on the block graph, renumber with
+    (``src/mm/dbcsr_mm.F:771-810``): compute the hidden locality axis
+    once with RCM on the block graph, renumber with
     :func:`permute_blocks`, and every subsequent multiply gets compact
-    tiles + panel-kernel admissibility for free.
+    tiles for free.
 
     ``pm[i]`` is the new id of A's block-row ``i``; ``pk`` covers A's
     cols == B's rows; ``pn`` B's cols. With ``b_index=None`` (square

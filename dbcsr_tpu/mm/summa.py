@@ -3,11 +3,12 @@
 The reference offers two distributed algorithms: Cannon point-to-point
 shifts (``dbcsr_mm_cannon.F``) and the one-sided 2.5D driver
 (``dbcsr_mm_3d.F``), with "image decimation" to run Cannon on non-square
-grids (``dbcsr_mm_dist_operations.F:56-212``). The TPU-native second
+grids (``dbcsr_mm_dist_operations.F:56-212``). The second
 algorithm is SUMMA: device (i, j) owns the C tiles with row-bin i / col-bin
 j and consumes A's row-panel i (k-sharded along the 'pc' axis) and B's
 col-panel j (k-sharded along 'pr'); each k-step broadcasts one k-slice —
-here ``lax.all_gather`` over one mesh axis, which XLA pipelines over ICI.
+here ``lax.all_gather`` over one mesh axis, which XLA pipelines over the
+interconnect.
 SUMMA has no grid-shape constraint, so it is the dispatch choice whenever
 nprow != npcol (the reference reaches the same generality via virtual-image
 decimation of Cannon).
@@ -286,7 +287,7 @@ def _summa_exec(
         b = b.reshape(b.shape[-3:])
         st = st.reshape(st.shape[-2:])
         # gather A's row panel across the column axis, B's col panel across
-        # the row axis (the SUMMA broadcasts, pipelined by XLA over ICI)
+        # the row axis (the SUMMA broadcasts, pipelined by XLA)
         a_full = jax.lax.all_gather(a, AXIS_COL)  # [Q, n_a, T, T]
         b_full = jax.lax.all_gather(b, AXIS_ROW)  # [P, n_b, T, T]
         a_full = a_full.reshape(q * n_a, tile, tile)

@@ -2,7 +2,7 @@
 
 The reference keeps its hot host-side index machinery in compiled code
 (Fortran stack builder ``src/mm/dbcsr_mm_csr.F`` + C++ ``libsmm_acc``); the
-TPU-native equivalent keeps device math in XLA/Pallas and compiles the
+equivalent here keeps device math in XLA/Pallas and compiles the
 branchy host planning into ``stackbuild.cpp``. The library is built lazily
 with g++ on first use and cached next to the source; every entry point has
 a numpy fallback, selected by config ``use_native_planner`` (env

@@ -1,7 +1,7 @@
 // Native planner core: fused tile-stack enumeration + sort + C-slot
 // assignment.
 //
-// TPU-native counterpart of the reference's hot host-side index machinery:
+// Counterpart of the reference's hot host-side index machinery:
 // the csr stack builder (`dbcsr_mm_csr_multiply_low`,
 // src/mm/dbcsr_mm_csr.F:178-360 — triple loop + per-row hash tables) and the
 // stack sort/binning of the GPU driver (`stack_sort`/`stack_binning`,

@@ -1,6 +1,7 @@
-"""Split-complex (re/im) emulation of the z/c type classes on backends
-whose device toolchain rejects complex arrays (restricted TPU compile
-services — see ``core/machine.backend_supports_complex``).
+"""Split-complex (re/im) emulation of the z/c type classes for backends
+whose device toolchain rejects complex arrays (see
+``core/machine.backend_supports_complex``; the CPU and GPU backends do
+complex natively, so this runs where a caller or test forces it).
 
 The reference instantiates every routine for d/s/z/c via fypp
 (``/root/reference/src/data/dbcsr.fypp:15-28``). Here a complex matrix on
@@ -14,7 +15,7 @@ ops:
   ``(Ar'Br' − sa·sb·Ai'Bi') + i(sa·Ai'Br' + sb·Ar'Bi')`` sharing one
   symbolic plan — the classic 4-real-matmul emulation (a 3-multiply
   Karatsuba form trades one product for two extra adds; with the adds
-  being tile-aligned HBM passes on TPU, 4 products is the faster shape);
+  being tile-aligned memory passes, 4 products is the faster shape);
 - reductions combine part results (trace, dot, norms).
 
 ``BCSRMatrix.parts()`` carries symmetry into the parts (H → re 'S',

@@ -3,7 +3,7 @@
 Analog of ``src/ops/dbcsr_csr_conversions.F:115-156`` (``csr_create_from_dbcsr``,
 ``convert_dbcsr_to_csr``, ``convert_csr_to_dbcsr``, ``dbcsr_to_csr_filter``,
 ``csr_write``). The reference's scalar-CSR type exists for interop with
-external solvers (e.g. PEXSI); the TPU-native exchange format is
+external solvers (e.g. PEXSI); this library's exchange format is
 ``scipy.sparse.csr_matrix`` on host — the universal Python sparse interop
 type — with explicit zeros kept so the blocked structure round-trips.
 

@@ -1,11 +1,11 @@
-"""True-f64 matmul at MXU rate via error-free bf16 slicing (Ozaki scheme).
+"""True-f64 matmul via error-free bf16 slicing (Ozaki scheme).
 
-TPU has no f64 MXU path: XLA's native f64 dot measures ~2.0 TFLOP/s hw
-on v5e and the batched f64 tile product the engine's XLA fallback runs
-is far slower still (``engine_banded_f64_eff`` = 7.1 GFLOP/s — see
-``tools/f64_roofline.py``, chip capture 2026-08-18). This module
-multiplies f64 operands on the native bf16 MXU with every intermediate
-EXACT until one final f64 combine:
+For devices whose f64 rate is far below their bf16 rate, this module
+multiplies f64 operands with bf16 matrix products, every intermediate
+EXACT until one final f64 combine. The engine uses it only on request
+(``f64_method="ozaki"``): the H100's FP64 tensor cores run the native
+dot, and the slice scheme's stack product needs many times the memory
+(PERF.md). The steps:
 
 1. **scale** — each row of A (column of B) is scaled per 128-wide
    K-chunk by a power of two so values sit in [-1, 1] (powers of two
@@ -15,7 +15,7 @@ EXACT until one final f64 combine:
    Every slice is an integer multiple of its grid step with <= 8
    significant bits, hence exactly representable in bfloat16;
 3. **multiply** — slice pairs (i, j) with ``i + j < S`` run as native
-   ``bf16 x bf16 -> f32`` MXU dots over K = 128. Each scalar product is
+   ``bf16 x bf16 -> f32`` dots over K = 128. Each scalar product is
    an integer multiple of a common power-of-two grid bounded by 2^16
    grid units, so a 128-term f32 accumulation stays below 2^24 grid
    units and is EXACT (f32 carries 24 mantissa bits);
@@ -31,10 +31,10 @@ comparable to — and for long contractions better than — a sequentially
 accumulated native f64 GEMM.
 
 Reference analog: fp64 is the reference GPU backend's PRIMARY type
-(``/root/reference/src/acc/libsmm_acc/libsmm_acc.cpp:92-150``,
-``parameters/parameters_*.json`` tune double kernels). This is the
-TPU-native answer to its double-precision CUDA kernels: same dtype
-semantics, executed as exact fixed-point slices on the matrix unit.
+(``src/acc/libsmm_acc/libsmm_acc.cpp:92-150``,
+``parameters/parameters_*.json`` tune double kernels). This scheme gives
+the same dtype semantics from exact fixed-point slices on a bf16 matrix
+unit.
 
 NaN/Inf caveat: non-finite inputs do not propagate IEEE-correctly
 through the slicing (the scale of a non-finite row is clamped); the
@@ -206,7 +206,7 @@ def tile_stack_matmul_ozaki(
       of A / tile column of B — numerically identical to the per-chunk
       scaling of ``ozaki_matmul`` since a tile IS one K-chunk;
     - slice gathers are tile-level bf16 takes (HBM-bandwidth);
-    - the kept pair products (i + j < S) run as batched bf16 MXU dots
+    - the kept pair products (i + j < S) run as batched bf16 dots
       and accumulate PER ANTI-DIAGONAL in f32 — exact, because 7-bit
       slices bound a whole diagonal group by 2^24 grid units (see
       ``DEFAULT_STACK_SLICES``);

@@ -1,6 +1,6 @@
 """Matrix I/O: binary checkpoint write/read and pretty printing.
 
-TPU-native analog of ``src/ops/dbcsr_io.F``:
+Analog of ``src/ops/dbcsr_io.F``:
 
 - ``binary_write`` / ``binary_read`` (reference ``dbcsr_binary_write/read``,
   ``src/ops/dbcsr_io.F:576-1077``): versioned snapshot with a 3-part layout —

@@ -6,8 +6,8 @@ feed epsilon filtering (``src/mm/dbcsr_mm_common.F:629-694``, GPU variant
 mirror ``dbcsr_types.F:231-234`` + ``src/ops/dbcsr_operations.F``.
 
 Per-block sums on a tile store run as two small per-tile INDICATOR matmuls
-(``block/tileops.py``) — MXU work, no scatters (TPU scatters/segment-sums at
-element granularity are ~1000× slower than HBM bandwidth, see store.py).
+(``block/tileops.py``) — matrix-unit work, no scatters (scatters/segment-sums
+at element granularity are far slower, see store.py).
 """
 from __future__ import annotations
 

@@ -205,7 +205,7 @@ def redistribute(m: BCSRMatrix, dist) -> BCSRMatrix:
 
 def complete_redistribute(m: BCSRMatrix, dist) -> BCSRMatrix:
     """Arbitrary dist→dist move (``dbcsr_complete_redistribute``,
-    ``src/ops/dbcsr_transformations.F:101``). In the TPU data model the tile
+    ``src/ops/dbcsr_transformations.F:101``). In this library's data model the tile
     store is layout-independent (per-device panels are packed from the
     distribution maps at multiply time), so this is :func:`redistribute`;
     kept as a separate name for API parity with the reference."""
@@ -215,7 +215,7 @@ def complete_redistribute(m: BCSRMatrix, dist) -> BCSRMatrix:
 def replicate_all(m: BCSRMatrix) -> BCSRMatrix:
     """Full replication (``dbcsr_replicate_all``,
     ``src/ops/dbcsr_transformations.F:106``): every process holds the whole
-    matrix. TPU-native form: drop the distribution → the engine treats the
+    matrix. This library's form: drop the distribution → the engine treats the
     buffer as replicated (on a multi-host mesh this is the ``all_gather`` of
     the block panels, which packing performs implicitly)."""
     return replace(m, dist=None)

@@ -1,6 +1,6 @@
 """Tall-and-skinny (TAS) matrix layer.
 
-TPU-native analog of ``src/tas/`` (see SURVEY.md §2.6): matrices where one
+Analog of ``src/tas/`` (see SURVEY.md §2.6): matrices where one
 dimension is much larger than the other (tensor unfoldings). The long
 dimension is partitioned into ``nsplit`` groups; multiplication reshapes the
 two large operands to compatible splits, replicates the small operand, runs

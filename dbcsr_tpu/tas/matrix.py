@@ -99,7 +99,7 @@ def extract_block_subset(
 
     The new matrix's block dimensions are the subsets themselves (global
     block ``row_blocks[i]`` becomes block row ``i``). One host index rebuild
-    plus one device gather — the TPU-native form of the reference's subgroup
+    plus one device gather — this library's form of the reference's subgroup
     matrix extraction inside TAS reshape (``dbcsr_tas_reshape_ops.F``).
     """
     if m.is_complex_emulated:

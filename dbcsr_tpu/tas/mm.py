@@ -14,7 +14,7 @@ Analog of ``dbcsr_tas_multiply`` (``src/tas/dbcsr_tas_mm.F:79-782``):
 5. merge disjoint results (m/n split, ``dbcsr_tas_merge:477``) or sum
    partials (k split, ``redistribute_and_sum:783``).
 
-TPU-native mapping: "subgroups of the cartesian grid" become independent
+Mapping: "subgroups of the cartesian grid" become independent
 group multiplies — each may itself run distributed over a (sub)mesh via the
 engine's Cannon path; "replication of the small matrix" is free locally (one
 flat device buffer is reused by every group) and an ``all_gather`` over the
@@ -80,7 +80,7 @@ def result_index_estimate(
     """Predict the product's block index (and effective flops) via the
     norms-matrix trial multiply (``dbcsr_tas_result_index``/
     ``create_block_norms_matrix``, ``src/tas/dbcsr_tas_mm.F:1353,1466``):
-    the reference multiplies 1×1 "norm blocks"; the TPU-native planner
+    the reference multiplies 1×1 "norm blocks"; this library's planner
     already runs exactly this as a scipy sparse product over block norms."""
     a = desymmetrize(a)
     b = desymmetrize(b)

@@ -1,6 +1,6 @@
 """Block-sparse tensor framework (rank 2..4+).
 
-TPU-native analog of ``src/tensors/`` (SURVEY.md §2.7): tensors fold to 2-D
+Analog of ``src/tensors/`` (SURVEY.md §2.7): tensors fold to 2-D
 block-sparse matrices via an nd→2d mapping; contraction aligns operand
 layouts and runs the folded product through the TAS layer.
 """

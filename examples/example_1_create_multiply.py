@@ -1,6 +1,6 @@
 """Example 1: assemble two block-sparse matrices and multiply them.
 
-The TPU-native analog of the reference's ``examples/dbcsr_example_1-3.F``
+This library's analog of the reference's ``examples/dbcsr_example_1-3.F``
 workflow: init the library, build matrices block-by-block, multiply with
 epsilon filtering, inspect the result and the statistics report.
 """

@@ -5,7 +5,7 @@ The memory-scaling story: `shard_matrix` splits a matrix's tile data by
 owner device (the distribution's bins); `sharded_multiply` and the sharded
 elementwise/reduction ops (`sharded_add`, `sharded_filter`,
 `sharded_trace`, ...) consume and produce that form directly, so nothing
-ever gathers to one host — the TPU-native analog of the reference keeping
+ever gathers to one host — the Analog of the reference keeping
 each rank's `data_area` local for the life of the computation.
 
 Run with a virtual CPU mesh to see real sharding on one machine:

@@ -7,7 +7,7 @@ block rows per 128x128 hardware tile. A clustered-but-scrambled numbering
 therefore shatters tile packing (measured ~16x tile blow-up), and no
 tile-level pass can recover it after the fact.
 
-The TPU-native fix is a one-time construction pre-pass, the analog of the
+This library's fix is a one-time construction pre-pass, the analog of the
 reference's dense-friendly-ordering requirement for its dense-limit path
 (``dbcsr_may_be_dense``/make_dense, ``src/mm/dbcsr_mm.F:771-810``):
 ``locality_block_permutation`` runs Reverse-Cuthill-McKee on the block

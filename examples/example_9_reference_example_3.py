@@ -16,7 +16,7 @@ one step here:
 Same shapes, same block sizes, same non-zero block lists as the
 original. Runs distributed over a 2x2 device mesh when 4+ devices exist
 (set ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` with
-``DBCSR_PLATFORM=cpu`` to rehearse multi-device), local otherwise.
+``JAX_PLATFORMS=cpu`` to rehearse multi-device), local otherwise.
 Validated against a dense oracle — the script FAILS loudly if the port
 ever diverges from the reference semantics.
 """

@@ -10,8 +10,6 @@ from dbcsr_tpu.block.bcsr import BCSRMatrix
 from dbcsr_tpu.block.index import build_index
 from dbcsr_tpu.core.config import config_override
 
-# curated real-chip battery (make tpu-check)
-pytestmark = pytest.mark.tpu_battery
 
 TILE = 16
 

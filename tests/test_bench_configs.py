@@ -1,11 +1,9 @@
 """Smoke every bench.py config end-to-end in TINY mode.
 
-bench.py is the driver-facing capture artifact: a regression there on a
-chip-window day silently costs the round its numbers (round 3 lost its
-capture to an unrelated outage; a bench bug would look identical). Each
-config runs ~20x-shrunk on CPU (``DBCSR_BENCH_TINY=1`` +
-``DBCSR_PLATFORM=cpu``) through the exact code path the chip capture
-uses, and must print one valid JSON record with the driver's schema.
+bench.py measures on the GPU; a bug there would cost a chip run its
+numbers. Each config runs ~20x-shrunk on CPU (``DBCSR_BENCH_TINY=1`` +
+``JAX_PLATFORMS=cpu``) through the code path the GPU run
+uses, and must print one valid JSON record with the bench's schema.
 Reference analog: the perf driver is itself a tested executable
 (``/root/reference/tests/CMakeLists.txt`` registers dbcsr_perf inputs).
 """
@@ -27,7 +25,7 @@ CONFIGS = [
 @pytest.mark.parametrize("config", CONFIGS)
 def test_bench_config_tiny(config):
     env = dict(os.environ)
-    env.update(DBCSR_PLATFORM="cpu", DBCSR_BENCH_TINY="1")
+    env.update(JAX_PLATFORMS="cpu", DBCSR_BENCH_TINY="1")
     # the bench must not inherit the suite's virtual-device XLA_FLAGS
     env.pop("XLA_FLAGS", None)
     res = subprocess.run(
@@ -42,5 +40,9 @@ def test_bench_config_tiny(config):
     assert "skipped" not in rec, rec
     assert rec["unit"] == "GFLOP/s"
     assert rec["value"] > 0.0
+    # every record names its device and precision; TINY runs say so
+    assert rec["platform"] == "cpu" and rec["tiny"] is True
+    assert rec["device_count"] >= 1 and rec["device_kind"]
+    assert rec["matmul_precision"] == "default"
     if config not in ("filtered", "tensor"):
         assert rec["block_matmuls_per_s"] > 0

@@ -315,7 +315,6 @@ def _build_and_run(tmp_path, program, name):
     return out.stdout
 
 
-@pytest.mark.tpu_battery  # curated real-chip battery
 def test_capi_typed_matrix_sweep(tmp_path):
     out = _build_and_run(tmp_path, MATRIX_PROGRAM, "typed")
     lines = {
@@ -348,7 +347,6 @@ def test_capi_typed_matrix_sweep(tmp_path):
     assert "z" in lines and "c" in lines and "s" in lines
 
 
-@pytest.mark.tpu_battery  # curated real-chip battery
 def test_capi_tensor_contraction(tmp_path):
     out = _build_and_run(tmp_path, TENSOR_PROGRAM, "tensor")
     lines = {

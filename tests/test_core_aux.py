@@ -46,16 +46,16 @@ def test_logger_levels_and_stack():
 def test_config_env_and_provenance(monkeypatch):
     from dbcsr_tpu.core.config import reset_config
 
-    monkeypatch.setenv("DBCSR_MAX_STACK_SIZE", "12345")
+    monkeypatch.setenv("DBCSR_BAND_MAX_PRODUCTS", "12345")
     reset_config()
     try:
         cfg = get_config()
-        assert cfg.max_stack_size == 12345
-        assert cfg.provenance("max_stack_size") == "E"
+        assert cfg.band_max_products == 12345
+        assert cfg.provenance("band_max_products") == "E"
         table = print_config()
-        assert "max_stack_size" in table and "12345" in table
+        assert "band_max_products" in table and "12345" in table
     finally:
-        monkeypatch.delenv("DBCSR_MAX_STACK_SIZE")
+        monkeypatch.delenv("DBCSR_BAND_MAX_PRODUCTS")
         reset_config()
 
 
@@ -96,29 +96,3 @@ def test_statistics_report(rng):
     assert "effective flops" in rep
     # per-(m,n,k) classes recorded (2/3-sized blocks -> classes like 2x2x3)
     assert "x" in rep.splitlines()[-1]
-
-
-def test_ici_model_tool():
-    """tools/ici_model.py (BASELINE metric #2 analytic tracker) plans the
-    weak-scaling workload host-side and yields sane roofline records."""
-    import os
-    import sys
-
-    tools_dir = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "..", "tools"
-    )
-    sys.path.insert(0, tools_dir)
-    try:
-        from ici_model import model
-    finally:
-        # remove OUR entry specifically — importing ici_model inserts the
-        # repo root at sys.path[0], so pop(0) would evict that instead
-        # and leak tools/ onto the path for the rest of the session
-        sys.path.remove(tools_dir)
-
-    recs = model(blocks_per_dev=16, occupancy=0.3, grids=(2,))
-    assert {r["chip"] for r in recs} == {"v5e", "v5p"}
-    for r in recs:
-        assert 0.0 < r["weak_scaling_efficiency_model"] <= 1.0
-        assert r["t_comm_us"] > 0 and r["t_compute_us"] > 0
-        assert r["s_max_per_tick"] > 0

@@ -13,7 +13,7 @@ from dbcsr_tpu.tensors import TensorBuilder, contract
 def _skip_if_unsupported(dtype):
     # complex now ALWAYS runs: natively where the backend supports complex
     # HLO, otherwise through split re/im emulation (ops/complex_emu.py) —
-    # z/c are first-class on the TPU backend too (round-2 item 4)
+    # z/c are first-class device dtypes
     del dtype
 
 

@@ -26,7 +26,7 @@ MIGRATION_EXAMPLES = [
 def test_migration_example(script):
     env = dict(os.environ)
     env.update(
-        DBCSR_PLATFORM="cpu",
+        JAX_PLATFORMS="cpu",
         XLA_FLAGS="--xla_force_host_platform_device_count=8",
     )
     res = subprocess.run(

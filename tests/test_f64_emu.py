@@ -1,7 +1,7 @@
 """ozaki f64 path (ops/f64_emu.py): exact bf16 slice products.
 
 Accuracy model under test: every intermediate (power-of-two scaling,
-8-bit slicing, bf16 MXU products, 128-term f32 accumulation) is exact;
+8-bit slicing, bf16 matrix products, 128-term f32 accumulation) is exact;
 the only roundings are the final f64 combine and the dropped slice
 pairs with i + j >= S. At S = 7 the result must be f64-grade — far
 beyond anything a single f32 pass can deliver.
@@ -155,33 +155,42 @@ def test_engine_dense_f64_ozaki():
 
 
 def test_auto_routes_per_class():
-    """The default ``f64_method="auto"`` routes per workload class
-    (ARCHITECTURE.md "f64 on TPU" item 2, chip-measured 2026-08-19):
-    dense tile-complete products -> native XLA f64 dot, sparse stack
-    products -> ozaki. Explicit settings override both classes."""
+    """The default ``f64_method="auto"`` means the native f64 dot for every
+    workload class (dense and stack); only an explicit "ozaki" takes the
+    slice schemes, and f32 never does."""
     import jax.numpy as jnp
 
     from dbcsr_tpu.core.config import get_config
-    from dbcsr_tpu.mm.engine import _use_ozaki
+    from dbcsr_tpu.mm.engine import _use_ozaki, select_route
 
     cfg = get_config()
     assert cfg.f64_method == "auto"  # the shipped default
-    assert _use_ozaki(jnp.float64, cfg, "stack") is True
-    assert _use_ozaki(jnp.float64, cfg, "dense") is False
-    assert _use_ozaki(jnp.float32, cfg, "stack") is False
+    assert _use_ozaki(jnp.float64, cfg) is False
+    assert _use_ozaki(jnp.float32, cfg) is False
     with dt.config_override(f64_method="native"):
-        c = get_config()
-        assert not _use_ozaki(jnp.float64, c, "stack")
-        assert not _use_ozaki(jnp.float64, c, "dense")
+        assert not _use_ozaki(jnp.float64, get_config())
     with dt.config_override(f64_method="ozaki"):
         c = get_config()
-        assert _use_ozaki(jnp.float64, c, "stack")
-        assert _use_ozaki(jnp.float64, c, "dense")
+        assert _use_ozaki(jnp.float64, c)
+        assert not _use_ozaki(jnp.float32, c)
+    # the engine's route for a sparse f64 stack: native XLA unless asked
+    rng = np.random.default_rng(4)
+    rbs = dt.random_block_sizes(40, [5, 13], rng)
+    a = dt.random_matrix(rbs, rbs, 0.05, rng, dtype=np.float64)
+    lay = a.layout
+    args = (
+        "stack", np.float64, a.tile, lay.tile_coords, lay.tile_coords,
+        (lay.ntr, lay.ntc, lay.ntc), a.index, a.index,
+    )
+    for platform in ("cpu", "gpu"):
+        assert select_route(cfg, *args, platform=platform).kind == "xla"
+        with dt.config_override(f64_method="ozaki"):
+            r = select_route(get_config(), *args, platform=platform)
+            assert r.kind == "ozaki"
 
 
 def test_auto_dense_f64_never_calls_ozaki(monkeypatch):
-    """Integration pin for the round-4 contradiction (VERDICT Weak #1):
-    a DENSE-TILE f64 multiply under the default config must take XLA's
+    """A DENSE-TILE f64 multiply under the default config must take XLA's
     native f64 dot — sabotage the ozaki entry points and require the
     multiply to still succeed."""
     import dbcsr_tpu.ops.f64_emu as emu

@@ -18,9 +18,6 @@ import dbcsr_tpu as dt
 from dbcsr_tpu.core.config import get_config, set_config
 from dbcsr_tpu.mm.plan import symbolic_product
 
-# curated real-chip battery (make tpu-check)
-pytestmark = pytest.mark.tpu_battery
-
 
 def _oracle_pattern(a, b, eps, *, per_row_eps=True):
     """Brute-force reference rule over dense pattern/norm arrays."""

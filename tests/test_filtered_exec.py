@@ -15,8 +15,6 @@ import pytest
 
 import dbcsr_tpu as dt
 
-pytestmark = pytest.mark.tpu_battery
-
 
 def _decayed_pair(rng, n=60, eps_scale=True):
     """Banded operands with off-diagonal magnitude decay, so the eps

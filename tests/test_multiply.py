@@ -11,9 +11,6 @@ import pytest
 
 import dbcsr_tpu as dt
 
-# curated real-chip battery (make tpu-check)
-pytestmark = pytest.mark.tpu_battery
-
 
 def dense(m):
     return np.asarray(m.to_dense())

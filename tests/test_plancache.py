@@ -101,50 +101,3 @@ def test_summa_hits_plan_cache(rng):
     m0 = cache.misses
     dt.multiply("N", "N", 1.0, a, b, dist=dist)
     assert cache.misses == m0
-
-
-def test_panel_plan_cached(rng):
-    """The O(S log S) panel planning is memoized (including the None
-    "inadmissible" verdict) so iterative one-shot callers don't re-plan
-    every step — round-3 advisor finding (engine._cached_panel_plan)."""
-    from dbcsr_tpu.block.index import build_index
-    from dbcsr_tpu.block.store import store_layout
-    from dbcsr_tpu.core.config import get_config
-    from dbcsr_tpu.mm.engine import _cached_panel_plan
-    from dbcsr_tpu.mm.tileplan import plan_tile_stacks_stores
-
-    cache = get_plan_cache()
-    cache.clear()
-    n = 60
-    rbs = np.full(n, 23, np.int32)
-    i = np.repeat(np.arange(n, dtype=np.int64), 5)
-    j = i + np.tile(np.arange(-2, 3, dtype=np.int64), n)
-    keep = (j >= 0) & (j < n)
-    idx, _ = build_index(i[keep], j[keep], rbs, rbs)
-    lay = store_layout(idx, 128)
-    coords, (mt, kt) = lay.tile_coords, (lay.ntr, lay.ntc)
-    tplan = plan_tile_stacks_stores(coords, (mt, kt), coords, (kt, mt))
-    cfg = get_config()
-    args = (
-        cfg, tplan, idx, idx, False, False, False, False,
-        lay.n_tiles, lay.n_tiles, "auto", None, coords,
-    )
-    p1 = _cached_panel_plan(*args)
-    misses0, hits0 = cache.misses, cache.hits
-    p2 = _cached_panel_plan(*args)
-    assert cache.misses == misses0 and cache.hits == hits0 + 1
-    assert p2 is p1  # cached object, not a re-plan
-    # a knob change must invalidate (the key covers public config fields)
-    from dbcsr_tpu.core.config import config_override
-
-    with config_override(panel_c_win=max(4, cfg.panel_c_win // 2)):
-        _cached_panel_plan(get_config(), *args[1:])
-    assert cache.misses == misses0 + 1
-
-    # pinning the knob at its DEFAULT VALUE must also invalidate: knob
-    # resolution branches on D/E/U provenance (default defers to the
-    # tuned table), so value-identical configs can resolve different
-    # plans — the fingerprint covers provenance too
-    with config_override(panel_c_win=cfg.panel_c_win):
-        _cached_panel_plan(get_config(), *args[1:])
-    assert cache.misses == misses0 + 2

@@ -1,11 +1,10 @@
-"""Locality tile-reordering (mm/reorder.py): RCM renumbering recovers
-panel-kernel admissibility on clustered-but-scrambled patterns, and the
-permuted plan computes the same product (slot-exact after key mapping)."""
+"""Locality reordering (mm/reorder.py): RCM renumbering recovers the
+hidden band of clustered-but-scrambled patterns, and the permuted plan
+computes the same product (slot-exact after key mapping)."""
 import numpy as np
 import pytest
 
-from dbcsr_tpu.mm.panel import plan_panel_stack
-from dbcsr_tpu.mm.reorder import locality_reorder_plan
+from dbcsr_tpu.mm.reorder import locality_reorder_plan, tile_bandwidth
 from dbcsr_tpu.mm.tileplan import plan_tile_stacks_stores
 
 
@@ -40,25 +39,22 @@ def _stack_product(plan, a_st, b_st):
 
 
 def test_reorder_recovers_panel_admissibility():
+    """A scrambled band spans the whole tile grid; the RCM renumbering
+    brings every operand back within a narrow band (the locality a
+    C-window of consecutive tiles needs), bijectively."""
     n, w = 96, 3
     a_coords, b_coords = _scrambled_band_pair(n, w, seed=1)
     nat = plan_tile_stacks_stores(a_coords, (n, n), b_coords, (n, n))
-    nat_panel = plan_panel_stack(
-        nat.stack, nat.n_c_tiles, len(a_coords), len(b_coords),
-        c_win=16, a_cap=64, b_cap=64, chunk=8, admit_ratio=0.9,
-    )
-    assert nat_panel is None  # scrambled: spans cover the whole store
+    assert tile_bandwidth(a_coords) > n // 2  # scrambled
 
     rp = locality_reorder_plan(a_coords, (n, n), b_coords, (n, n))
     assert rp is not None
     rplan = plan_tile_stacks_stores(rp.a_coords, (n, n), rp.b_coords, (n, n))
     assert len(rplan.stack) == len(nat.stack)  # bijective renumbering
-    r_panel = plan_panel_stack(
-        rplan.stack, rplan.n_c_tiles, len(a_coords), len(b_coords),
-        c_win=16, a_cap=64, b_cap=64, chunk=8, admit_ratio=0.9,
-    )
-    assert r_panel is not None
-    assert r_panel.traffic_ratio < 0.9
+    assert tile_bandwidth(rp.a_coords) <= 4 * w
+    assert tile_bandwidth(rp.b_coords) <= 4 * w
+    for p in (rp.pm, rp.pk, rp.pn):
+        assert np.array_equal(np.sort(p), np.arange(n))
 
 
 @pytest.mark.parametrize("shape", [(40, 32, 24), (48, 48, 48)])
@@ -106,9 +102,10 @@ def test_reorder_degenerate_inputs():
 
 
 def test_executor_reorder_end_to_end():
-    """A clustered-but-scrambled block matrix through the plan-once
-    executor: the engine's reorder fallback must kick in (panel plan via
-    RCM) and the product must match the dense oracle exactly."""
+    """A clustered-but-scrambled block matrix, renumbered once with
+    ``locality_block_permutation``/``permute_blocks``, through the
+    plan-once executor: the product matches the dense oracle of the
+    permuted operands and its tile count shrinks."""
     import dbcsr_tpu as dt
     from dbcsr_tpu.block.bcsr import BCSRMatrix
     from dbcsr_tpu.core.config import config_override
@@ -124,13 +121,16 @@ def test_executor_reorder_end_to_end():
             b.put_block(int(r), int(c), rng.standard_normal((8, 8)))
         return b.finalize()
 
-    a = mat(a_coords, "A")
-    b = mat(b_coords, "B")
-    ref = np.asarray(a.to_dense()) @ np.asarray(b.to_dense())
-    with config_override(mm_driver="panel", reorder="auto",
-                         panel_cache=64, tile_size=8):
-        fn, c_index, _ = build_multiply_executor("N", "N", a, b)
-        out = fn(a.data, b.data)
+    with config_override(tile_size=16):
+        a = mat(a_coords, "A")
+        b = mat(b_coords, "B")
+        pm, pk, pn = dt.locality_block_permutation(a.index, b.index)
+        ar = dt.permute_blocks(a, pm, pk)
+        br = dt.permute_blocks(b, pk, pn)
+        assert ar.layout.n_tiles < a.layout.n_tiles
+        ref = np.asarray(ar.to_dense()) @ np.asarray(br.to_dense())
+        fn, c_index, _ = build_multiply_executor("N", "N", ar, br)
+        out = fn(ar.data, br.data)
     c = BCSRMatrix(name="C", index=c_index, data=out)
     np.testing.assert_allclose(np.asarray(c.to_dense()), ref, atol=1e-3)
 

@@ -7,9 +7,6 @@ import dbcsr_tpu as dt
 from dbcsr_tpu.core.config import config_override
 from dbcsr_tpu.mm.tileplan import plan_tile_stacks_stores
 
-# curated real-chip battery (make tpu-check)
-pytestmark = pytest.mark.tpu_battery
-
 
 def dense(m):
     return np.asarray(m.to_dense())

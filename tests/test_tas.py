@@ -72,7 +72,6 @@ def test_tas_multiply_orientations(transa, transb, m, k, n):
     _check(transa, transb, a, b, out)
 
 
-@pytest.mark.tpu_battery  # curated real-chip battery
 def test_tas_multiply_auto_split_and_flops():
     rng = np.random.default_rng(7)
     mbs, kbs, nbs = _bs(60, rng), _bs(5, rng), _bs(6, rng)

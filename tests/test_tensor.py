@@ -111,7 +111,6 @@ def _einsum_check(spec, a, b, out, alpha=1.0):
     np.testing.assert_allclose(out.to_dense(), ref, rtol=1e-10, atol=1e-10)
 
 
-@pytest.mark.tpu_battery  # curated real-chip battery
 def test_contract_rank3_rank2():
     # C[i,j,l] = sum_k A[i,j,k] B[k,l]    ("ijk,kl->ijl")
     rng = np.random.default_rng(5)

@@ -1,16 +1,19 @@
-"""Apply chip-emitted checksum references to .perf recipe files.
+"""Pin the checksum references of the .perf recipes from a numpy f64 oracle.
 
-``tools/chip_session.sh`` step 8 runs ``python -m dbcsr_tpu.perf <f>
---emit-checksum`` per unpinned recipe; the emitted reference lines land
-in ``/tmp/chip_r3/perf_<name>.log``. This tool patches each recipe's
-``# checksum`` block (``F`` → ``T`` + threshold + reference) from those
-logs, turning a finished chip window into a one-command repo update.
-Reference analog: the ``checksum_ref`` lines in the reference's
-``tests/inputs/*.perf`` (``tests/dbcsr_performance_multiply.F:102``).
+For each recipe this builds the seeded operands exactly as
+``python -m dbcsr_tpu.perf`` does (``perf.make_operands``), forms the
+result as a dense numpy f64 product on the host (``perf.oracle_dense``)
+and writes its position-weighted checksum into the recipe's
+``# checksum`` block (``T`` + threshold + reference). No device
+arithmetic enters the reference. Reference analog: the ``checksum_ref``
+lines in the reference's ``tests/inputs/*.perf``
+(``tests/dbcsr_performance_multiply.F:102``).
 
-Usage: python tools/apply_checksums.py [logdir] [--dry-run]
+Usage: JAX_PLATFORMS=cpu python tools/apply_checksums.py [recipe ...]
+       [--dry-run]
 """
-import _bootstrap  # noqa: F401  (repo-root sys.path + JAX_PLATFORMS honor)
+import _bootstrap  # noqa: F401  (repo-root sys.path)
+import glob
 import os
 import re
 import sys
@@ -18,43 +21,41 @@ import sys
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 INPUTS = os.path.join(REPO, "tests", "inputs")
 
+#: relative tolerance of the check: an f64 device product differs from
+#: the host oracle only in summation order (~1e-15 per element)
+THRESHOLD = 1e-10
 
-def parse_emitted(log_path: str):
-    """(threshold, checksum) from an --emit-checksum run's output, or
-    None when the marker block is absent (failed/partial step)."""
-    with open(log_path) as f:
-        lines = [ln.strip() for ln in f]
-    for i, ln in enumerate(lines):
-        if ln.startswith("# checksum reference lines"):
-            if (
-                len(lines) >= i + 4
-                and lines[i + 1] == "T"
-            ):
-                return float(lines[i + 2]), float(lines[i + 3])
-    return None
+HEADER = (
+    "# checksum (position-weighted pd_blk_cs form of the numpy f64\n"
+    "#  oracle of the seeded operands, tools/apply_checksums.py)\n"
+)
 
 
-def apply_to_recipe(path: str, threshold: float, ref: float,
+def oracle_checksum(path: str, seed: int = 0) -> float:
+    from dbcsr_tpu.perf import (
+        dense_checksum,
+        make_operands,
+        oracle_dense,
+        parse_perf,
+    )
+
+    cfg = parse_perf(path)
+    return dense_checksum(oracle_dense(cfg, make_operands(cfg, seed)))
+
+
+def apply_to_recipe(path: str, ref: float, threshold: float = THRESHOLD,
                     dry_run: bool = False) -> bool:
-    """Rewrite the recipe's checksum block: the first non-comment token
-    after the '# checksum' comment block becomes T/threshold/ref."""
+    """Rewrite the recipe's checksum block (the last section of the
+    format: '# checksum' comment lines, then F or T/threshold/refs)."""
     with open(path) as f:
         text = f.read()
-    # the block is '# checksum...' comment lines followed by 'F' (or a
-    # previous T + values, which we replace wholesale to end-of-file —
-    # the checksum block is the last section of the format)
-    m = re.search(r"(# checksum[^\n]*\n(?:#[^\n]*\n)*)", text)
+    m = re.search(r"# checksum[^\n]*\n(?:#[^\n]*\n)*", text)
     if not m:
         print(f"  {os.path.basename(path)}: no '# checksum' block found")
         return False
-    head = text[: m.end()]
-    stamp = (
-        f"T\n{threshold:.1E}\n{ref:.15E}\n"
-    )
-    new = head + stamp
+    new = text[: m.start()] + HEADER + f"T\n{threshold:.1E}\n{ref:.15E}\n"
     if dry_run:
-        print(f"  would pin {os.path.basename(path)}: "
-              f"threshold {threshold:g}, ref {ref:.15E}")
+        print(f"  would pin {os.path.basename(path)}: ref {ref:.15E}")
         return True
     with open(path, "w") as f:
         f.write(new)
@@ -63,32 +64,19 @@ def apply_to_recipe(path: str, threshold: float, ref: float,
 
 
 def main(argv=None) -> int:
+    import dbcsr_tpu as dt
+
     argv = argv if argv is not None else sys.argv[1:]
     dry = "--dry-run" in argv
-    argv = [a for a in argv if a != "--dry-run"]
-    logdir = argv[0] if argv else "/tmp/chip_r3"
-    n_ok = 0
-    logs = sorted(
-        f for f in os.listdir(logdir)
-        if f.startswith("perf_") and f.endswith(".log")
+    paths = [a for a in argv if a != "--dry-run"] or sorted(
+        glob.glob(os.path.join(INPUTS, "*.perf"))
     )
-    if not logs:
-        print(f"no perf_*.log files in {logdir}")
-        return 1
-    for log in logs:
-        name = log[len("perf_"):-len(".log")]
-        recipe = os.path.join(INPUTS, f"{name}.perf")
-        if not os.path.exists(recipe):
-            print(f"  {log}: no matching recipe {name}.perf")
-            continue
-        emitted = parse_emitted(os.path.join(logdir, log))
-        if emitted is None:
-            print(f"  {log}: no emitted checksum block (step failed?)")
-            continue
-        if apply_to_recipe(recipe, *emitted, dry_run=dry):
-            n_ok += 1
-    print(f"{n_ok}/{len(logs)} recipes {'would be ' if dry else ''}pinned")
-    return 0 if n_ok else 1
+    dt.init_lib()
+    n_ok = sum(
+        apply_to_recipe(p, oracle_checksum(p), dry_run=dry) for p in paths
+    )
+    print(f"{n_ok}/{len(paths)} recipes {'would be ' if dry else ''}pinned")
+    return 0 if n_ok == len(paths) else 1
 
 
 if __name__ == "__main__":
